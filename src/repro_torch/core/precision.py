@@ -10,17 +10,18 @@ the implementation; weights may be float tensors or quantize-once
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .backend import resolve as _resolve_backend
-from .fxp import FORMATS, fake_quant
+from .fxp import FORMATS, fake_quant, quantize
 from .qtensor import QuantizedTensor
 from .tiers import TIER_LADDER, TIERS, PrecisionTier, tier_index
 
-__all__ = ["PrecisionPolicy", "qmatmul", "PrecisionTier", "TIERS",
-           "TIER_LADDER", "tier_index", "tier_policy", "policy_tier"]
+__all__ = ["PrecisionPolicy", "qmatmul", "QuantizedActivation",
+           "quantize_activation", "PrecisionTier", "TIERS", "TIER_LADDER",
+           "tier_index", "tier_policy", "policy_tier"]
 
 
 def _dispatch():
@@ -108,15 +109,46 @@ def policy_tier(policy: Optional[PrecisionPolicy]) -> Optional[str]:
     return policy.matmul if policy.matmul in TIERS else None
 
 
-def qmatmul(x: torch.Tensor, w, policy: Optional[PrecisionPolicy],
+class QuantizedActivation(NamedTuple):
+    """An activation [..., K] quantized once, per tensor, for several
+    GEMMs that read it (q/k/v, the SwiGLU gate and up projections):
+    codes [rows, K], the f32 scale, and the leading shape and dtype of
+    the activation it came from."""
+    codes: torch.Tensor
+    scale: torch.Tensor
+    lead: tuple
+    dtype: torch.dtype
+
+
+def quantize_activation(x: torch.Tensor, w,
+                        policy: Optional[PrecisionPolicy]):
+    """`x` quantized the way `qmatmul(x, w, policy)` quantizes it, when
+    that is the integer path (a quantize-once weight of <= 8 bits, and an
+    activation format of <= 8 bits); otherwise `x` unchanged. Every
+    `qmatmul` of the result against such weights gives what it gives on
+    `x`, bit for bit."""
+    if not isinstance(w, QuantizedTensor) or w.fmt.bits > 8:
+        return x
+    fmt_x = FORMATS[policy.matmul if policy is not None
+                    and policy.matmul is not None else w.fmt_name]
+    if fmt_x.bits > 8:
+        return x
+    *lead, kdim = x.shape
+    codes, scale = quantize(x.reshape(-1, kdim).float(), fmt_x)
+    return QuantizedActivation(codes, scale, tuple(lead), x.dtype)
+
+
+def qmatmul(x, w, policy: Optional[PrecisionPolicy],
             af: Optional[str] = None) -> torch.Tensor:
     """Policy-aware matmul x [..., K] @ w [K, N] -> [..., N] in x.dtype.
 
-    Quantize-once weights, a fused activation, or the kernels backend go
-    through `kernels.dispatch`. Otherwise: the fake-quant float path
-    (operands snapped to the policy's FxP grid, f32 accumulation)."""
+    Quantize-once weights, a fused activation, the kernels backend or a
+    `QuantizedActivation` go through `kernels.dispatch`. Otherwise: the
+    fake-quant float path (operands snapped to the policy's FxP grid, f32
+    accumulation)."""
     be = _resolve_backend(policy.backend if policy is not None else None)
-    if be == "kernels" or isinstance(w, QuantizedTensor) or af is not None:
+    if (be == "kernels" or isinstance(w, QuantizedTensor) or af is not None
+            or isinstance(x, QuantizedActivation)):
         return _dispatch().matmul(x, w, policy, backend=be, af=af)
     if policy is not None and policy.matmul is not None:
         x = fake_quant(x, FORMATS[policy.matmul])

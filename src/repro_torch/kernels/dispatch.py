@@ -23,6 +23,7 @@ import torch
 
 from ..core.activation import default_stages, flex_af
 from ..core.fxp import FORMATS, fake_quant, quantize
+from ..core.precision import QuantizedActivation, quantize_activation
 from ..core.qtensor import QuantizedTensor
 from .fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
                                 fxp_gemm_fused_plain)
@@ -84,17 +85,16 @@ def _matmul_reference(x, w, policy, af=None):
     bit-identical to the kernel path. Float weights: fake-quant operands
     and an f32 product. The optional `af` runs on the accumulator output
     before the cast back to x.dtype."""
+    xa = (x if isinstance(x, QuantizedActivation)
+          else quantize_activation(x, w, policy))
+    if isinstance(xa, QuantizedActivation):
+        scale = (xa.scale * w.scale).float().expand(1, w.n)
+        out = fxp_gemm_fused_plain(xa.codes, w.codes(), scale)
+        if af is not None:
+            out = _af_on_accumulator(out, af, policy)
+        return out.reshape(*xa.lead, w.n).to(xa.dtype)
     orig_dtype = x.dtype
     if isinstance(w, QuantizedTensor):
-        fmt_x = _x_fmt(w.fmt_name, policy)
-        if w.fmt.bits <= 8 and fmt_x.bits <= 8:
-            *lead, kdim = x.shape
-            xc, sx = quantize(x.reshape(-1, kdim).float(), fmt_x)
-            scale = (sx * w.scale).float().expand(1, w.n)
-            out = fxp_gemm_fused_plain(xc, w.codes(), scale)
-            if af is not None:
-                out = _af_on_accumulator(out, af, policy)
-            return out.reshape(*lead, w.n).to(orig_dtype)
         w = w.dequantize(torch.float32)
         x = x.float()
         if policy is not None and policy.matmul is not None:
@@ -127,9 +127,12 @@ def _matmul_kernels(x, w, policy, af=None):
     # AF policies apply the shared accumulator-AF contract as a post-op
     fuse_af = (af is not None and af in FUSED_AFS
                and (policy is None or policy.af_impl == "cordic"))
-    orig_dtype = x.dtype
-    *lead, kdim = x.shape
-    xc, sx = quantize(x.reshape(-1, kdim).float(), x_fmt)
+    if isinstance(x, QuantizedActivation):
+        xc, sx, lead, orig_dtype = x
+    else:
+        orig_dtype = x.dtype
+        *lead, kdim = x.shape
+        xc, sx = quantize(x.reshape(-1, kdim).float(), x_fmt)
     if isinstance(w, QuantizedTensor):
         if w.ndim != 2:
             raise ValueError("kernel matmul wants a 2-D (per-layer) weight")

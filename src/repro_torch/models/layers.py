@@ -15,13 +15,13 @@ old cache keep their own copy.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.activation import default_stages, softmax_lv_stages
 from ..core.fxp import FORMATS, dequantize, quantize
-from ..core.precision import PrecisionPolicy, qmatmul
+from ..core.precision import PrecisionPolicy, qmatmul, quantize_activation
 from ..kernels.paged_attention.paged_attention import (gather_pool_view,
                                                       masked_attention,
                                                       softmax_fns)
@@ -112,7 +112,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
 
 def _write_plan(block_tables, start, count, s, shape):
     """Where a [B, S] block of new tokens lands in a cache buffer viewed
-    flat over its first two axes: -> (flat indices [B*S], valid [B*S]).
+    flat over its first two axes: -> (targets [B*S], valid [B*S], index
+    of the first valid entry [1], any valid []), for `_apply_write`.
 
     Paged (`block_tables` given): `shape` is the pool's (NB, bs); logical
     position p of row b lands at table[b, p // bs] * bs + p % bs, tokens
@@ -138,7 +139,8 @@ def _write_plan(block_tables, start, count, s, shape):
     # entries that must not write repeat the first valid entry instead
     first = torch.argmax(valid.to(torch.int32)).reshape(1)
     idx = idx.reshape(-1)
-    return torch.where(valid, idx, idx.index_select(0, first)), valid, first
+    return (torch.where(valid, idx, idx.index_select(0, first)), valid,
+            first, valid.any())
 
 
 def _apply_write(buf, plan, new):
@@ -147,13 +149,13 @@ def _apply_write(buf, plan, new):
     rewrite the first valid entry's value at its slot, or, when nothing
     is valid, the current content of one slot. Valid slots must be
     distinct."""
-    tgt, valid, first = plan
+    tgt, valid, first, any_valid = plan
     flat = buf.view((buf.shape[0] * buf.shape[1],) + tuple(buf.shape[2:]))
     vals = new.reshape((tgt.shape[0],) + tuple(new.shape[2:])).to(buf.dtype)
     vshape = (-1,) + (1,) * (vals.dim() - 1)
     src = torch.where(valid.reshape(vshape), vals,
                       vals.index_select(0, first))
-    src = torch.where(valid.any(), src, flat[tgt])
+    src = torch.where(any_valid, src, flat[tgt])
     flat[tgt] = src
     return buf
 
@@ -218,8 +220,24 @@ def init_kv_cache(cfg, batch, max_len, policy=None, dtype=torch.bfloat16,
 # GQA attention
 # ---------------------------------------------------------------------------
 
+class StepPlan(NamedTuple):
+    """What every layer of one step shares: RoPE's (cos, sin) at the
+    step's positions and where the step's new K/V land in the cache."""
+    rope: Optional[tuple]
+    write: tuple
+
+
+def step_plan(cfg, positions, lengths, n_valid, block_tables, cache_shape):
+    """The `StepPlan` of a [B, S] block; `cache_shape` is the first two
+    axes of one layer's K buffer ((NB, bs) paged, (B, Smax) contiguous)."""
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.rope else None)
+    return StepPlan(rope, _write_plan(block_tables, lengths, n_valid,
+                                      positions.shape[1], cache_shape))
+
+
 def attention(p, x, cfg, *, positions, policy=None, cache=None,
-              lengths=None, n_valid=None, block_tables=None):
+              lengths=None, n_valid=None, block_tables=None, plan=None):
     """Returns (out, cache_entry).
 
     cache = (k, v, k_scale, v_scale) for ONE layer: contiguous
@@ -228,33 +246,36 @@ def attention(p, x, cfg, *, positions, policy=None, cache=None,
     write offset of its new tokens) and `n_valid` [B] how many of this
     block's S tokens are real. New K/V are written in place; single-token
     paged decode then runs the paged attention op straight off the pool,
-    and every other case attends over the (gathered) contiguous view."""
+    and every other case attends over the (gathered) contiguous view.
+    `plan` is the step's `StepPlan` when a caller runs many layers over
+    the same block (computed here otherwise)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = qmatmul(x, p["wq"], policy)
-    k = qmatmul(x, p["wk"], policy)
-    v = qmatmul(x, p["wv"], policy)
+    xa = quantize_activation(x, p["wq"], policy)     # one grid for q, k, v
+    q = qmatmul(xa, p["wq"], policy)
+    k = qmatmul(xa, p["wk"], policy)
+    v = qmatmul(xa, p["wv"], policy)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
-    if cfg.rope:
-        rope = rope_tables(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, positions, tables=rope)
-        k = apply_rope(k, positions, tables=rope)
     if cache is None:
         raise NotImplementedError("cache-less attention (training forward) "
                                   "is ROADMAP.md queue 1, item 10")
     kc, vc, k_scale, v_scale = cache
     if n_valid is None:
         n_valid = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    if plan is None:
+        plan = step_plan(cfg, positions, lengths, n_valid, block_tables,
+                         kc.shape[:2])
+    if cfg.rope:
+        q = apply_rope(q, positions, tables=plan.rope)
+        k = apply_rope(k, positions, tables=plan.rope)
     kv_valid = lengths + n_valid
     kq_fmt = (FORMATS[policy.kv_cache]
               if (policy and policy.kv_cache) else None)
     paged = block_tables is not None
-    # one write plan for the four cache leaves (codes and scales)
-    plan = _write_plan(block_tables, lengths, n_valid, s, kc.shape[:2])
 
     def view(buf):
         return gather_block_kv(buf, block_tables) if paged else buf
@@ -264,10 +285,10 @@ def attention(p, x, cfg, *, positions, policy=None, cache=None,
         v_codes, vs_new = quantize(v, kq_fmt, axis=3)
         for buf, new in ((kc, k_codes), (vc, v_codes), (k_scale, ks_new),
                          (v_scale, vs_new)):
-            _apply_write(buf, plan, new)
+            _apply_write(buf, plan.write, new)
     else:
-        _apply_write(kc, plan, k)
-        _apply_write(vc, plan, v)
+        _apply_write(kc, plan.write, k)
+        _apply_write(vc, plan.write, v)
     int_attn = bool(kq_fmt is not None and policy.int_attention)
     if paged and s == 1:
         be = policy.resolved_backend() if policy else "reference"
@@ -299,11 +320,12 @@ def mlp(p, x, act, policy=None):
     """FFN with the Flex-PE MAC -> AF pipeline: under a policy the
     activation is the GEMM's fused epilogue."""
     if "w3" in p:  # SwiGLU
+        xa = quantize_activation(x, p["w1"], policy)  # one grid for both
         if policy:
-            gate = qmatmul(x, p["w1"], policy, af="silu")
+            gate = qmatmul(xa, p["w1"], policy, af="silu")
         else:
-            gate = torch.nn.functional.silu(qmatmul(x, p["w1"], policy))
-        h = gate * qmatmul(x, p["w3"], policy)
+            gate = torch.nn.functional.silu(qmatmul(xa, p["w1"], policy))
+        h = gate * qmatmul(xa, p["w3"], policy)
     else:
         if policy:
             h = qmatmul(x, p["w1"], policy,

@@ -20,7 +20,7 @@ import torch
 from ..core.backend import resolve_device
 from ..core.precision import PrecisionPolicy, qmatmul
 from ..core.qtensor import QuantizedTensor
-from .layers import attention, init_kv_cache, mlp, rmsnorm
+from .layers import attention, init_kv_cache, mlp, rmsnorm, step_plan
 
 __all__ = ["init_params", "init_cache", "decode_step", "layer_params",
            "slice_cache_rows", "update_cache_rows", "copy_pool_blocks"]
@@ -185,6 +185,8 @@ def decode_step(cfg, params, cache, tokens,
                                                 device=dev)[None, :]
     block_tables = cache.get("block_tables")
     kv = cache["kv"]
+    plan = step_plan(cfg, positions, lengths, n_valid, block_tables,
+                     kv["k"].shape[1:3])
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
         h, _ = attention(
@@ -192,7 +194,8 @@ def decode_step(cfg, params, cache, tokens,
             positions=positions, policy=policy,
             cache=(kv["k"][i], kv["v"][i], kv["k_scale"][i],
                    kv["v_scale"][i]),
-            lengths=lengths, n_valid=n_valid, block_tables=block_tables)
+            lengths=lengths, n_valid=n_valid, block_tables=block_tables,
+            plan=plan)
         x = x + h
         x = x + mlp(bp["mlp"], rmsnorm(x, bp["mlp_norm"]["w"]), cfg.act,
                     policy)

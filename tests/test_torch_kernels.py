@@ -31,6 +31,8 @@ from repro.kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused_pallas
 from repro.kernels.paged_attention import ops as jpa_ops
 from repro_torch.core.activation import softmax_lv_stages
 from repro_torch.core.precision import PrecisionPolicy as TPolicy
+from repro_torch.core.precision import (QuantizedActivation, qmatmul,
+                                        quantize_activation)
 from repro_torch.core.qtensor import quantize_tensor as tquantize_tensor
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused
@@ -82,6 +84,27 @@ def test_dispatch_matmul_quantized_weight_matches_reference(backend, af):
     assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 40)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernels"])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_shared_activation_quantization_is_bit_identical(backend, af):
+    """q/k/v and the SwiGLU gate/up GEMMs reuse one quantized activation:
+    the same codes and scale each GEMM would compute on its own."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 64)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    ws = [tquantize_tensor(torch.from_numpy(
+        (rng.normal(size=(64, n)) * 0.1).astype(np.float32)), "fxp8")
+        for n in (48, 16)]
+    pol = TPolicy.flexpe(8, backend=backend)
+    xa = quantize_activation(x, ws[0], pol)
+    assert isinstance(xa, QuantizedActivation)
+    for w in ws:
+        assert torch.equal(qmatmul(xa, w, pol, af=af),
+                           qmatmul(x, w, pol, af=af))
+    # float weights keep the fake-quant path: nothing to share
+    assert quantize_activation(x, torch.ones((64, 8)), pol) is x
 
 
 def test_gemm_kernels_raise_on_unported_code_paths():

@@ -23,10 +23,12 @@ from repro.configs import get_config as jget_config
 from repro.core import PrecisionPolicy as JPolicy
 from repro.core.qtensor import QuantizedTensor as JQT
 from repro.core.qtensor import quantize_params as jquantize_params
+from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch.configs import get_config
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core.precision import PrecisionPolicy as TPolicy
+from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
 CHUNK, SLOTS, MAX_LEN, BS = 8, 2, 24, 4
@@ -126,3 +128,30 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup):
         TM.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TM.init_params(get_config("qwen2_5_14b").reduced(), 0)
+
+
+def test_cache_writes_match_reference():
+    """Paged (drop-mode scatter through the block table, a sentinel entry,
+    an idle row) and contiguous (ragged window) writes land where the
+    reference's do; the port writes in place."""
+    rng = np.random.default_rng(5)
+    pool = rng.normal(size=(6, 2, 1, 3)).astype(np.float32)     # NB=6, bs=2
+    tables = np.array([[2, 0, 6], [1, 3, 6], [6, 6, 6]], np.int32)
+    new = rng.normal(size=(3, 3, 1, 3)).astype(np.float32)
+    start = np.array([1, 4, 0], np.int32)
+    count = np.array([3, 2, 0], np.int32)     # row 1 runs into the sentinel
+    want = JL.paged_cache_update(jnp.asarray(pool), jnp.asarray(new),
+                                 jnp.asarray(tables), jnp.asarray(start),
+                                 jnp.asarray(count))
+    got = torch.from_numpy(pool.copy())
+    TL.paged_cache_update(got, torch.from_numpy(new),
+                          torch.from_numpy(tables), torch.from_numpy(start),
+                          torch.from_numpy(count))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    buf = rng.normal(size=(3, 8, 1, 3)).astype(np.float32)
+    want = JL.ragged_cache_update(jnp.asarray(buf), jnp.asarray(new),
+                                  jnp.asarray(start), jnp.asarray(count))
+    got = torch.from_numpy(buf.copy())
+    TL.ragged_cache_update(got, torch.from_numpy(new),
+                           torch.from_numpy(start), torch.from_numpy(count))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
