@@ -8,18 +8,21 @@ Phases, one line each, any failure exits non-zero before the last line:
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main path's shapes (GEMM bit-equal without an AF),
                 with its time, the plain version's time and its bound;
+                the attention also at long rows, whose score row lives
+                in a global scratch row instead of shared memory;
   4. check    — the reduced model served through the kernels and through
                 the plain path on the card: same greedy tokens;
   5. serve    — full-width Qwen2.5-14B, FxP8 quantize-once weights, paged
                 int8 KV (block 16), 4 slots, 8 mixed requests (prompts
-                32-64), 16 greedy tokens each, overlap loop; launch counts
-                from this run, tokens identical on a rerun.
+                32-64), 16 greedy tokens each, overlap loop, all 48
+                layers; launch counts from this run, tokens identical on
+                a rerun, one decode step of the rerun traced with the
+                profiler (kernel device time and the device's idle share).
 The second-to-last lines are the card line and the kernels JSON; the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import statistics
 import subprocess
@@ -66,6 +69,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_records(prof) -> dict:
+    """{record name: (count, device ms)} of a profiler's device records."""
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            out[ev.key] = (ev.count, t / 1e3)
+    return out
+
+
+def matching(records: dict, match: str | None):
+    """(launches, device ms) of the records whose name contains `match`
+    (every record when None)."""
+    sel = [v for k, v in records.items() if match is None or match in k]
+    return sum(c for c, _ in sel), sum(ms for _, ms in sel)
+
+
 def device_ms(fn, iters: int, match: str | None = None):
     """Mean device time per call of `fn()` from the profiler's CUDA kernel
     records: the kernels whose name contains `match`, or every kernel the
@@ -77,14 +99,8 @@ def device_ms(fn, iters: int, match: str | None = None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        if match is None or match in ev.key:
-            total += t
-    return total / iters / 1e3 if total > 0 else None
+    total = matching(device_records(prof), match)[1]
+    return total / iters if total > 0 else None
 
 
 TIMING = {"source": "profiler"}     # set to "cuda events" on fallback
@@ -113,17 +129,16 @@ def bound_ms(nbytes: float, ops: float, ops_rate: float):
 def gemm_phase(dev, gen):
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused, fxp_gemm_fused_plain)
-    # (M, K, N, af, launches per decode step) of the full-width model
-    shapes = [(SLOTS, 5120, 5120, None, 2 * 48),       # wq, wo
-              (SLOTS, 5120, 1024, None, 2 * 48),       # wk, wv
-              (SLOTS, 5120, 13824, "silu", 48),        # w1 + fused silu
-              (SLOTS, 5120, 13824, None, 48),          # w3
-              (SLOTS, 13824, 5120, None, 48),          # w2
-              (SLOTS, 5120, 152064, None, 1),          # lm_head
-              (16, 5120, 5120, None, 0)]               # a prefill chunk
+    # (M, K, N, af) of the full-width model
+    shapes = [(SLOTS, 5120, 5120, None),       # wq, wo
+              (SLOTS, 5120, 1024, None),       # wk, wv
+              (SLOTS, 5120, 13824, "silu"),    # w1 + fused silu
+              (SLOTS, 5120, 13824, None),      # w3
+              (SLOTS, 13824, 5120, None),      # w2
+              (SLOTS, 5120, 152064, None),     # lm_head
+              (16, 5120, 5120, None)]          # a prefill chunk
     rows, worst = [], 0.0
-    step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for m, k, n, af, per_step in shapes:
+    for m, k, n, af in shapes:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
@@ -158,15 +173,14 @@ def gemm_phase(dev, gen):
               f"call (plain {pms:.4f} ms, bound {bms:.4f} ms by "
               f"{by}, {100 * bms / ms:.1f}% of bound), max|err| {err}",
               flush=True)
-        step["ms"] += per_step * ms
-        step["plain_ms"] += per_step * pms
-        step["bound_ms"] += per_step * bms
-    return rows, worst, step
+    return rows, worst
 
 
-def paged_attention_inputs(dev, gen, quant: bool):
+def paged_attention_inputs(dev, gen, quant: bool, lengths):
+    """Pools, tables and metadata for SLOTS rows holding `lengths` cached
+    tokens each, in blocks shuffled over the pool, tables ending in
+    sentinel entries."""
     kvh, g, hd, bs = 8, 5, 128, 16
-    lengths = [1024, 1536, 2000, 1200]                 # cached tokens
     mb = -(-(max(lengths) + 1) // bs) + 2      # sentinel tail entries
     need = [-(-(n + 1) // bs) for n in lengths]
     nb = sum(need) + 8
@@ -201,15 +215,23 @@ def paged_attention_inputs(dev, gen, quant: bool):
 def attention_phase(dev, gen):
     from repro_torch.core.activation import softmax_lv_stages
     from repro_torch.kernels.paged_attention.paged_attention import (
-        paged_attention_float, paged_attention_float_plain)
+        paged_attention_float, paged_attention_float_plain, scores_in_scratch)
     result = None
-    for quant, cordic_sm in ((True, True), (False, False)):
+    short, long_ = [1024, 1536, 2000, 1200], [12000, 9000, 11000, 4000]
+    # (int8 pool + CORDIC softmax, cached tokens per row); the long rows'
+    # score row does not fit in shared memory
+    for quant, lengths in ((True, short), (False, short), (True, long_)):
+        cordic_sm = quant
         (q, k, v, ks, vs, tables, meta, alloc_blocks,
-         valid) = paged_attention_inputs(dev, gen, quant)
+         valid) = paged_attention_inputs(dev, gen, quant, lengths)
+        width = tables.shape[1] * k.shape[1]
+        scratch = scores_in_scratch(q.shape[2], q.shape[3], width)
+        if scratch != (lengths is long_):
+            fail(f"paged_attention_float at table width {width}: score row "
+                 f"{'in' if scratch else 'not in'} global scratch")
         kw = dict(k_scale=ks, v_scale=vs, cordic_softmax=cordic_sm,
                   hr_stages=4,
-                  lv_stages=softmax_lv_stages(tables.shape[1] * k.shape[1],
-                                              "fxp8"),
+                  lv_stages=softmax_lv_stages(width, "fxp8"),
                   out_dtype=torch.bfloat16)
         got = paged_attention_float(q, k, v, tables, meta, **kw)
         ref = paged_attention_float_plain(q, k, v, tables, meta, **kw)
@@ -220,7 +242,8 @@ def attention_phase(dev, gen):
         # bf16 output, reductions in another order than the plain einsums:
         # within 1% of the output's range
         tol = 1e-2 * ref.float().abs().max().item()
-        body = "dequant+cordic" if quant else "bf16+exact"
+        body = ("dequant+cordic" if quant else "bf16+exact") + (
+            ", scores in global scratch" if scratch else "")
         if err > tol:
             fail(f"paged_attention_float ({body}): max |err| {err} > {tol}")
         ms = timed(lambda: paged_attention_float(q, k, v, tables, meta,
@@ -241,7 +264,7 @@ def attention_phase(dev, gen):
               f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f}% of bound), max|err| {err} "
               f"(tol {tol:.4g})", flush=True)
-        if quant:
+        if result is None:
             result = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                           max_abs_err=err)
     return result
@@ -278,14 +301,14 @@ def check_phase(dev):
           f"{sum(map(len, toks['kernels']))} greedy tokens", flush=True)
 
 
-def serve_phase(dev, n_layers: int):
+def serve_phase(dev):
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_attention_float)
     from repro_torch.launch.serve import build_engine, make_requests
-    cfg = dataclasses.replace(get_config("qwen2_5_14b"), n_layers=n_layers)
+    cfg = get_config("qwen2_5_14b")
     gen_tokens, prompt_len = 16, 64
     t0 = time.perf_counter()
     engine = build_engine(cfg, PrecisionPolicy.flexpe(8, backend="kernels"),
@@ -294,12 +317,16 @@ def serve_phase(dev, n_layers: int):
                           kv_block_size=16, overlap=True)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    print(f"serve setup: full-width qwen2_5_14b, {n_layers} layers, random "
-          f"weights quantized to FxP8 in {setup_s:.1f} s, "
+    print(f"serve setup: full-width qwen2_5_14b, {cfg.n_layers} layers, "
+          f"random weights quantized to FxP8 in {setup_s:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
 
-    # time each decode step on the device stream (events do not sync)
+    def counts():
+        return fxp_gemm_fused.launches, paged_attention_float.launches
+
+    # each decode step: its span on the device stream (events, no sync),
+    # the host time to enqueue it, and the kernel launches it made
     ex = engine.ex
     spans = []
     decode = ex.decode_and_sample
@@ -307,11 +334,14 @@ def serve_phase(dev, n_layers: int):
     def timed_decode(*a, **kw):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        c0 = counts()
         h0 = time.perf_counter()
         s.record()
         out = decode(*a, **kw)
         e.record()
-        spans.append((s, e, time.perf_counter() - h0))
+        c1 = counts()
+        spans.append((s, e, time.perf_counter() - h0,
+                      (c1[0] - c0[0], c1[1] - c0[1])))
         return out
     ex.decode_and_sample = timed_decode
 
@@ -319,12 +349,12 @@ def serve_phase(dev, n_layers: int):
     fxp_gemm_fused.launches = 0
     paged_attention_float.launches = 0
     toks, finished, dt = serve_tokens(engine, reqs)
-    launches = {"fxp_gemm_fused": fxp_gemm_fused.launches,
-                "paged_attention_float": paged_attention_float.launches}
+    launches = dict(zip(("fxp_gemm_fused", "paged_attention_float"),
+                        counts()))
     n_decode = len(spans)
-    dev_ms = statistics.median(s.elapsed_time(e) for s, e, _ in spans)
-    host_ms = 1e3 * statistics.median(h for _, _, h in spans)
-    ex.decode_and_sample = decode
+    dev_ms = statistics.median(s.elapsed_time(e) for s, e, _, _ in spans)
+    host_ms = 1e3 * statistics.median(h for _, _, h, _ in spans)
+    per_step = sorted({c for _, _, _, c in spans})
 
     if len(finished) != len(reqs):
         fail(f"serve: {len(finished)} of {len(reqs)} requests finished")
@@ -342,18 +372,64 @@ def serve_phase(dev, n_layers: int):
           f"{total / dt:.1f} tok/s ({st['generated_tokens'] / dt:.1f} "
           f"generated tok/s); {n_decode} decode steps, median "
           f"{dev_ms:.2f} ms on the device stream, {host_ms:.2f} ms to "
-          f"enqueue; launches {launches} = "
-          f"{launches['fxp_gemm_fused'] / max(st['ticks'], 1):.1f} GEMM per "
-          f"tick", flush=True)
+          f"enqueue; launches {launches}, per decode step (GEMM, "
+          f"attention) {per_step}", flush=True)
 
+    # rerun: the same tokens; its middle decode step synced on both sides
+    # and traced, so the trace holds that step's kernels and nothing else
+    target, calls, trace = n_decode // 2, [], {}
+
+    def traced_decode(*a, **kw):
+        calls.append(None)
+        if len(calls) - 1 != target:
+            return decode(*a, **kw)
+        torch.cuda.synchronize()
+        act = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=act) as prof:
+            c0 = counts()
+            h0 = time.perf_counter()
+            out = decode(*a, **kw)
+            torch.cuda.synchronize()
+            trace["wall_ms"] = 1e3 * (time.perf_counter() - h0)
+            c1 = counts()
+        trace["counted"] = (c1[0] - c0[0], c1[1] - c0[1])
+        trace["records"] = device_records(prof)
+        return out
+    ex.decode_and_sample = traced_decode
     again, _, dt2 = serve_tokens(engine, make_requests(
         cfg, 8, prompt_len, gen_tokens, mixed=True, seed=0))
+    ex.decode_and_sample = decode
     if again != toks:
         fail("serve: rerun of the same workload gave other tokens")
     print(f"serve rerun: identical tokens ({dt2:.3f} s); first request "
           f"{toks[0]}", flush=True)
-    return launches, dict(tok_s=total / dt, decode_ms=dev_ms,
-                          enqueue_ms=host_ms, seconds=dt)
+
+    rec = trace["records"]
+    n_gemm, gemm_ms = matching(rec, "fxp_gemm_fused_kernel")
+    n_attn, attn_ms = matching(rec, "paged_attention_kernel")
+    n_all, all_ms = matching(rec, None)
+    if (n_gemm, n_attn) != trace["counted"]:
+        fail(f"traced decode step: {n_gemm} GEMM and {n_attn} attention "
+             f"kernel records, the counters say {trace['counted']}")
+    idle = 1.0 - all_ms / trace["wall_ms"]
+    print(f"traced decode step (rerun step {target} of {n_decode}, synced, "
+          f"under the profiler): {trace['wall_ms']:.3f} ms wall; device "
+          f"time {all_ms:.3f} ms in {n_all} records = {n_gemm} GEMM "
+          f"kernels {gemm_ms:.3f} ms + {n_attn} attention kernels "
+          f"{attn_ms:.3f} ms + {n_all - n_gemm - n_attn} other "
+          f"{all_ms - gemm_ms - attn_ms:.3f} ms; device idle "
+          f"{100 * idle:.1f}% of the step", flush=True)
+    top = sorted(rec.items(), key=lambda kv: -kv[1][1])[:8]
+    print("traced decode step, largest device records: " + "; ".join(
+        f"{k[:60]} x{c} {ms:.3f} ms" for k, (c, ms) in top), flush=True)
+    return launches, dict(
+        tok_s=total / dt, generated_tok_s=st["generated_tokens"] / dt,
+        decode_ms=dev_ms, enqueue_ms=host_ms, seconds=dt,
+        launches_per_decode_step=per_step,
+        traced_step=dict(wall_ms=trace["wall_ms"], device_ms=all_ms,
+                         gemm_ms=gemm_ms, gemm_launches=n_gemm,
+                         attention_ms=attn_ms, attention_launches=n_attn,
+                         idle_share=idle))
 
 
 def main():
@@ -380,11 +456,10 @@ def main():
           f"(nvcc sm_90a, in parallel)", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    gemm_rows, gemm_err, gemm_step = gemm_phase(dev, gen)
+    gemm_rows, gemm_err = gemm_phase(dev, gen)
     attn = attention_phase(dev, torch.Generator(device=dev).manual_seed(1))
     check_phase(dev)
-    n_layers = int(sys.argv[1]) if len(sys.argv) > 1 else 48
-    launches, serve_stats = serve_phase(dev, n_layers)
+    launches, serve_stats = serve_phase(dev)
 
     w1 = next(r for r in gemm_rows if r["af"] == "silu")
     kernels = [
@@ -396,10 +471,7 @@ def main():
          "plain_ms": w1["plain_ms"], "bound_ms": w1["bound_ms"],
          "bound_by": w1["bound_by"], "library_ms": None,
          "timing": TIMING["source"], "call_ms": w1["call_ms"],
-         "shape": f"M={w1['m']} K={w1['k']} N={w1['n']} +silu (w1)",
-         "decode_step_ms": gemm_step["ms"],
-         "decode_step_plain_ms": gemm_step["plain_ms"],
-         "decode_step_bound_ms": gemm_step["bound_ms"]},
+         "shape": f"M={w1['m']} K={w1['k']} N={w1['n']} +silu (w1)"},
         {"name": "paged_attention_float", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/paged_attention.py"

@@ -72,12 +72,6 @@ def _af_on_accumulator(out, af, policy):
     return out
 
 
-def _x_fmt(w_fmt_name, policy):
-    name = (policy.matmul if policy is not None
-            and policy.matmul is not None else w_fmt_name)
-    return FORMATS[name]
-
-
 @register("matmul", "reference")
 def _matmul_reference(x, w, policy, af=None):
     """Plain path. Quantize-once weights (<= 8 bits): quantize the
@@ -110,46 +104,40 @@ def _matmul_reference(x, w, policy, af=None):
 
 @register("matmul", "kernels")
 def _matmul_kernels(x, w, policy, af=None):
-    """Integer-kernel path: quantize the activation per tensor, then the
-    code GEMM with its fused dequant (+ CORDIC AF) epilogue."""
-    fmt_name = (w.fmt_name if isinstance(w, QuantizedTensor)
-                else (policy.matmul if policy is not None else None))
-    if fmt_name is None:
-        # native-precision policy: nothing to quantize
-        return _matmul_reference(x, w, policy, af=af)
-    x_fmt = _x_fmt(fmt_name, policy)
-    if FORMATS[fmt_name].bits > 8 or x_fmt.bits > 8 or (
-            isinstance(w, QuantizedTensor) and w.packed):
+    """Integer-kernel path: the activation quantized per tensor by
+    `quantize_activation`, as on the plain path, then the code GEMM with
+    its fused dequant (+ CORDIC AF) epilogue. A float weight is first
+    quantized per tensor to the policy's format."""
+    if not isinstance(w, QuantizedTensor):
+        if policy is None or policy.matmul is None:
+            # native-precision policy: nothing to quantize
+            return _matmul_reference(x, w, policy, af=af)
+        wb, sw = quantize(w.float(), FORMATS[policy.matmul])
+        w = QuantizedTensor(wb, sw.reshape(1, 1), policy.matmul,
+                            w.shape[-1], False)
+    xa = (x if isinstance(x, QuantizedActivation)
+          else quantize_activation(x, w, policy))
+    if w.packed or not isinstance(xa, QuantizedActivation):
         raise NotImplementedError(
             "the fxp_gemm kernel path takes int8 codes only; packed FxP4 "
             "and >8-bit codes are ROADMAP.md queue 2, item 7")
+    if w.ndim != 2:
+        raise ValueError("kernel matmul wants a 2-D (per-layer) weight")
     # fuse the AF into the epilogue only on the CORDIC datapath; 'exact'
     # AF policies apply the shared accumulator-AF contract as a post-op
     fuse_af = (af is not None and af in FUSED_AFS
                and (policy is None or policy.af_impl == "cordic"))
-    if isinstance(x, QuantizedActivation):
-        xc, sx, lead, orig_dtype = x
-    else:
-        orig_dtype = x.dtype
-        *lead, kdim = x.shape
-        xc, sx = quantize(x.reshape(-1, kdim).float(), x_fmt)
-    if isinstance(w, QuantizedTensor):
-        if w.ndim != 2:
-            raise ValueError("kernel matmul wants a 2-D (per-layer) weight")
-        n, wb, wscale = w.n, w.data, w.scale
-    else:
-        wb, sw = quantize(w.float(), FORMATS[fmt_name])
-        n, wscale = w.shape[-1], sw.reshape(1, 1)
-    scale = (sx * wscale).float().expand(1, n)
+    scale = (xa.scale * w.scale).float().expand(1, w.n)
     hr, lv = default_stages(policy.af if policy is not None else None)
-    out = fxp_gemm_fused(xc, wb, scale, af=af if fuse_af else None,
-                         hr_stages=hr, lv_stages=lv)
+    out = fxp_gemm_fused(xa.codes, w.data, scale,
+                         af=af if fuse_af else None, hr_stages=hr,
+                         lv_stages=lv)
     if fuse_af:
         if policy is not None and policy.af is not None:
             out = fake_quant(out, FORMATS[policy.af])
     elif af is not None:
         out = _af_on_accumulator(out, af, policy)
-    return out.reshape(*lead, n).to(orig_dtype)
+    return out.reshape(*xa.lead, w.n).to(xa.dtype)
 
 
 # ---------------------------------------------------------------------------

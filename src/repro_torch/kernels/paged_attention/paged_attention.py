@@ -27,7 +27,8 @@ from ...core import cordic
 from ..build import cordic_params, library
 
 __all__ = ["paged_attention_float", "paged_attention_float_plain",
-           "gather_pool_view", "masked_attention", "softmax_fns"]
+           "gather_pool_view", "masked_attention", "softmax_fns",
+           "scores_in_scratch"]
 
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a block may use
 _MAX_G = 8                      # kMaxG in csrc/paged_attention.cu
@@ -38,6 +39,14 @@ _SIGNATURES = {
                                                       _P, _P], ctypes.c_int),
     "paged_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
 }
+
+
+def scores_in_scratch(g: int, hd: int, width: int) -> bool:
+    """True when the kernel's [g, width] score row does not fit in shared
+    memory and the wrapper hands it a global scratch row instead (width =
+    MB * bs, the table width). Builds the kernel library on first use."""
+    lib = library("paged_attention", _SIGNATURES)
+    return lib.paged_attention_smem_bytes(g, hd, width) > _SMEM_LIMIT
 
 
 def gather_pool_view(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -166,7 +175,7 @@ def paged_attention_float(q, k_pool, v_pool, block_tables, meta, *,
         raise ValueError("pools must be 16-byte aligned")
     lib = library("paged_attention", _SIGNATURES)
     scratch = None
-    if lib.paged_attention_smem_bytes(g, hd, mb * bs) > _SMEM_LIMIT:
+    if scores_in_scratch(g, hd, mb * bs):
         scratch = torch.empty((b, kvh, g, mb * bs), dtype=torch.float32,
                               device=dev)
     out = torch.empty((b, kvh * g, hd), dtype=torch.bfloat16, device=dev)

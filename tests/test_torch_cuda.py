@@ -18,7 +18,7 @@ from repro_torch.core.activation import softmax_lv_stages
 from repro_torch.kernels.fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
                                                    fxp_gemm_fused_plain)
 from repro_torch.kernels.paged_attention.paged_attention import (
-    paged_attention_float, paged_attention_float_plain)
+    paged_attention_float, paged_attention_float_plain, scores_in_scratch)
 
 
 @pytest.fixture
@@ -43,18 +43,34 @@ def test_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, af):
     assert torch.equal(got, fxp_gemm_fused_plain(x, w, scale, af=af))
 
 
-def _pools(quant, b=3, kvh=2, g=5, hd=32, bs=4, mb=6, nb=12, seed=0):
-    """Row 0: blocks [3, 1] (6 cached tokens); row 1 SHARES block 3 and
-    adds [2, 5, 9, 7] (17 cached tokens); row 2 is idle (all sentinel,
-    length 0); each active row's table ends in sentinel entries."""
-    rng = np.random.default_rng(seed)
-    q = torch.from_numpy(rng.normal(size=(b, kvh, g, hd)).astype(np.float32))
-    tables = np.full((b, mb), nb, np.int32)
-    tables[0, :2] = [3, 1]
-    tables[1, :5] = [3, 2, 5, 9, 7]
-    lengths = np.array([6, 17, 0], np.int32)
+def _tables(long_rows):
+    """(tables, meta, nb, g, bs). Short: row 0 holds blocks [3, 1] (6
+    cached tokens); row 1 SHARES block 3 and adds [2, 5, 9, 7] (17 cached
+    tokens). Long: a table 7680 positions wide, whose [g, MB*bs] score row
+    does not fit in shared memory; row 0 caches 7500 tokens over 469
+    shuffled blocks, row 1 shares row 0's first block and caches 1590
+    tokens. Row 2 is idle (all sentinel, length 0) and each active row's
+    table ends in sentinel entries."""
+    if long_rows:
+        nb, mb, g, bs = 600, 480, 8, 16
+        perm = np.random.default_rng(5).permutation(nb)
+        rows, lengths = [perm[:469], [perm[0], *perm[469:568]]], [7500, 1590]
+    else:
+        nb, mb, g, bs = 12, 6, 5, 4
+        rows, lengths = [[3, 1], [3, 2, 5, 9, 7]], [6, 17]
+    tables = np.full((3, mb), nb, np.int32)
+    for b, row in enumerate(rows):
+        tables[b, :len(row)] = row
+    lengths = np.array(lengths + [0], np.int32)
     kv_valid = lengths + np.array([1, 1, 0], np.int32)
-    meta = torch.from_numpy(np.stack([lengths, kv_valid, lengths], axis=1))
+    meta = np.stack([lengths, kv_valid, lengths], axis=1)
+    return torch.from_numpy(tables), torch.from_numpy(meta), nb, g, bs
+
+
+def _pools(quant, long_rows, kvh=2, hd=32, seed=0):
+    tables, meta, nb, g, bs = _tables(long_rows)
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(3, kvh, g, hd)).astype(np.float32))
     shape = (nb, bs, kvh, hd)
     if quant:
         k = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
@@ -67,17 +83,22 @@ def _pools(quant, b=3, kvh=2, g=5, hd=32, bs=4, mb=6, nb=12, seed=0):
         k = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
         v = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
         k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
-    return q.to(torch.bfloat16), k, v, ks, vs, torch.from_numpy(tables), meta
+    return q.to(torch.bfloat16), k, v, ks, vs, tables, meta
 
 
+@pytest.mark.parametrize("long_rows", [False, True],
+                         ids=["scores-in-smem", "scores-in-global-scratch"])
 @pytest.mark.parametrize("quant", [True, False], ids=["int8-cordic",
                                                       "bf16-exact"])
-def test_paged_attention_kernel_matches_plain(cuda, quant):
-    q, k, v, ks, vs, tables, meta = _pools(quant)
-    dev = [t.to(cuda) if t is not None else None
-           for t in (q, k, v, ks, vs, tables, meta)]
-    q, k, v, ks, vs, tables, meta = dev
-    lv = softmax_lv_stages(tables.shape[1] * k.shape[1], "fxp8")
+def test_paged_attention_kernel_matches_plain(cuda, quant, long_rows):
+    q, k, v, ks, vs, tables, meta = [
+        t.to(cuda) if t is not None else None
+        for t in _pools(quant, long_rows)]
+    width = tables.shape[1] * k.shape[1]
+    # the long table takes the kernel's other branch: its score row lives
+    # in a global scratch row instead of shared memory
+    assert scores_in_scratch(q.shape[2], q.shape[3], width) == long_rows
+    lv = softmax_lv_stages(width, "fxp8")
     kw = dict(k_scale=ks, v_scale=vs, cordic_softmax=quant, hr_stages=4,
               lv_stages=lv, out_dtype=torch.bfloat16)
     before = paged_attention_float.launches
