@@ -4,25 +4,36 @@
 
 Phases, one line each, any failure exits non-zero before the last line:
   1. card     — `nvidia-smi` name and power limit;
-  2. build    — nvcc builds every kernel under src/repro_torch/csrc;
+  2. build    — nvcc builds every kernel under src/repro_torch/csrc, all
+                at once;
   3. kernels  — each kernel against its plain PyTorch version on the card
-                at the main path's shapes (GEMM bit-equal without an AF),
-                with its time, the plain version's time and its bound;
-                the attention also at long rows, whose score row lives
-                in a global scratch row instead of shared memory;
-  4. check    — the reduced model served through the kernels and through
-                the plain path on the card: same greedy tokens;
-  5. serve    — full-width Qwen2.5-14B, FxP8 quantize-once weights, paged
-                int8 KV (block 16), 4 slots, 8 mixed requests (prompts
-                32-64), 16 greedy tokens each, overlap loop, all 48
-                layers; launch counts from this run, tokens identical on
-                a rerun, one decode step of the rerun traced with the
-                profiler (kernel device time and the device's idle share).
+                at the main paths' shapes, with its time, the plain
+                version's time and its bound: the GEMM (bit-equal) at the
+                dense projections and, batched over 64 experts, at the MoE
+                banks; the attention (within 1%) at g 5 and g 1, and at
+                long rows whose score row lives in a global scratch row;
+                the CORDIC AF (bit-equal) at the MoE expert activations;
+                the CORDIC softmax (bit-equal) at the router's rows and a
+                wide row;
+  4. check    — reduced Qwen2.5-14B and reduced DeepSeekMoE-16B, each
+                served through the kernels and through the plain path on
+                the card: the same greedy tokens;
+  5. serve    — full-width Qwen2.5-14B (all 48 layers) and then full-width
+                DeepSeekMoE-16B (all 28 layers), each with FxP8
+                quantize-once weights from seed 0, paged int8 KV (block
+                16), 4 slots, 8 mixed requests (prompts 40-64), 16 greedy
+                tokens each, prefill chunk 16, overlap loop; the launches
+                of every kernel counted over each serve run (set to 0 just
+                before it) and per decode step against the model's count,
+                tokens identical on a rerun, one decode step of the rerun
+                traced with the profiler (kernel device time and the
+                device's idle share), memory on the card and its peak.
 The second-to-last lines are the card line and the kernels JSON; the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -176,11 +187,65 @@ def gemm_phase(dev, gen):
     return rows, worst
 
 
-def paged_attention_inputs(dev, gen, quant: bool, lengths):
+def batched_gemm_phase(dev, gen):
+    """The expert-batched entry at the DeepSeekMoE banks (E 64; 4 queue
+    slots per expert at decode, 16 per prefill chunk: a queue holds at
+    most one row per token; silu not fused, as the MoE path calls it):
+    bit-equal to its plain per-expert loop. At decode 4 tokens x top-6
+    fill 24 of the 64 x 4 rows; the kernel skips the products of zero
+    rows and the weight bytes of experts with none, so the bound counts
+    the weights of the experts this input routes to. The last shape fills
+    every row: the whole bank is read."""
+    from repro_torch.kernels.fxp_gemm.fxp_gemm import (
+        fxp_gemm_fused_batched, fxp_gemm_fused_batched_plain)
+    e, top_k = 64, 6
+    for m, k, n, tokens in ((SLOTS, 2048, 1408, SLOTS),
+                            (SLOTS, 1408, 2048, SLOTS),
+                            (16, 2048, 1408, 16),
+                            (SLOTS, 2048, 1408, None)):
+        x = torch.zeros((e, m, k), dtype=torch.int8, device=dev)
+        if tokens is None:          # every queue full: all 64 banks read
+            x.random_(-127, 128, generator=gen)
+        else:                       # each token's top-6 experts, in turn
+            choice = torch.stack([torch.randperm(e, generator=gen,
+                                                 device=dev)[:top_k]
+                                  for _ in range(tokens)])
+            for t in range(tokens):
+                for ex in choice[t].tolist():
+                    slot = int((x[ex].abs().sum(-1) > 0).sum())
+                    x[ex, slot].random_(-127, 128, generator=gen)
+                    x[ex, slot, 0] = 1      # no all-zero filled row
+        w = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-4
+        got = fxp_gemm_fused_batched(x, w, scale)
+        ref = fxp_gemm_fused_batched_plain(x, w, scale.reshape(e, n))
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"fxp_gemm_fused batched E={e} M={m} K={k} N={n}: not "
+                 "bit-equal to the per-expert loop")
+        ms = timed(lambda: fxp_gemm_fused_batched(x, w, scale), 20,
+                   "fxp_gemm_fused_kernel")
+        pms = timed(lambda: fxp_gemm_fused_batched_plain(
+            x, w, scale.reshape(e, n)), 2)
+        active = int((x.reshape(e, -1) != 0).any(-1).sum())
+        filled = int((x != 0).any(-1).sum())
+        nbytes = e * m * k + active * k * n + 4 * e * n + 4 * e * m * n
+        bms, by = bound_ms(nbytes, 2.0 * filled * k * n, INT8_OPS_PER_S)
+        occupancy = ("all queues full" if tokens is None else
+                     f"{tokens} tokens x top-{top_k}: {filled} filled rows "
+                     f"in {active} experts")
+        print(f"kernel fxp_gemm_fused batched E={e} M={m} K={k} N={n} "
+              f"({occupancy}): {ms:.4f} ms on the device (plain loop "
+              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"{100 * bms / ms:.1f}% of bound), bit-equal", flush=True)
+
+
+def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5):
     """Pools, tables and metadata for SLOTS rows holding `lengths` cached
     tokens each, in blocks shuffled over the pool, tables ending in
     sentinel entries."""
-    kvh, g, hd, bs = 8, 5, 128, 16
+    hd, bs = 128, 16
     mb = -(-(max(lengths) + 1) // bs) + 2      # sentinel tail entries
     need = [-(-(n + 1) // bs) for n in lengths]
     nb = sum(need) + 8
@@ -218,12 +283,14 @@ def attention_phase(dev, gen):
         paged_attention_float, paged_attention_float_plain, scores_in_scratch)
     result = None
     short, long_ = [1024, 1536, 2000, 1200], [12000, 9000, 11000, 4000]
-    # (int8 pool + CORDIC softmax, cached tokens per row); the long rows'
-    # score row does not fit in shared memory
-    for quant, lengths in ((True, short), (False, short), (True, long_)):
+    # (int8 pool + CORDIC softmax, cached tokens per row, KV heads, query
+    # heads per KV head): Qwen2.5-14B's g 5, DeepSeekMoE-16B's g 1; the
+    # long rows' score row does not fit in shared memory
+    for quant, lengths, kvh, g in ((True, short, 8, 5), (False, short, 8, 5),
+                                   (True, long_, 8, 5), (True, short, 16, 1)):
         cordic_sm = quant
         (q, k, v, ks, vs, tables, meta, alloc_blocks,
-         valid) = paged_attention_inputs(dev, gen, quant, lengths)
+         valid) = paged_attention_inputs(dev, gen, quant, lengths, kvh, g)
         width = tables.shape[1] * k.shape[1]
         scratch = scores_in_scratch(q.shape[2], q.shape[3], width)
         if scratch != (lengths is long_):
@@ -270,6 +337,80 @@ def attention_phase(dev, gen):
     return result
 
 
+# f32 operations per element, counted from csrc/cordic.cuh at FxP8's stage
+# counts (4 HR stages, LV 5 for the AF, 12 for the 64-way softmax): the HR
+# exp ~45 (clamp, range reduction, 4 stages of 9, 2^k), an LV stage 7
+CORDIC_SILU_OPS = 45 + 3 + 5 * 7 + 1
+CORDIC_SOFTMAX_OPS = 2 + 45 + 1 + 12 * 7
+
+
+def cordic_af_phase(dev, gen):
+    """The CORDIC AF kernel at the MoE expert activations (silu; 64
+    experts x 4 queue slots x 1408 at decode, x 16 per prefill chunk, and
+    the shared experts' 4 x 2816), bit-equal to its plain version."""
+    from repro_torch.kernels.cordic_af.cordic_af import (
+        cordic_af, cordic_af_plain, cordic_af_reference)
+    rows = []
+    for shape in ((1, 64, SLOTS, 1408), (1, 64, 16, 1408), (1, SLOTS, 2816)):
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        for precision in ("fxp8", None):
+            got = cordic_af(x, "silu", precision=precision)
+            ref = (cordic_af_plain(x, "silu", 4, 5) if precision is None
+                   else cordic_af_reference(x, "silu", precision=precision))
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                err = (got - ref).abs().max().item()
+                fail(f"cordic_af silu {shape} precision {precision}: max "
+                     f"|err| {err}, not bit-equal to the plain version")
+        n = x.numel()
+        ms = timed(lambda: cordic_af(x, "silu"), 20, "cordic_af_kernel")
+        pms = timed(lambda: cordic_af_plain(x, "silu", 4, 5), 3)
+        bms, by = bound_ms(8.0 * n, CORDIC_SILU_OPS * n, F32_OPS_PER_S)
+        rows.append(dict(shape=shape, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, max_abs_err=0.0))
+        print(f"kernel cordic_af silu {list(shape)}: {ms:.4f} ms (plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"{100 * bms / ms:.1f}% of bound), bit-equal with and "
+              f"without the FxP8 snaps", flush=True)
+    return rows
+
+
+def cordic_softmax_phase(dev, gen):
+    """The CORDIC softmax kernel at the router's rows (4 decode tokens, one
+    16-token prefill chunk, 64 experts, lv 12) and at a wide row (the
+    lane loop over 4096 columns), bit-equal to its plain version."""
+    from repro_torch.core.activation import softmax_lv_stages
+    from repro_torch.kernels.cordic_softmax.cordic_softmax import (
+        cordic_softmax, cordic_softmax_plain, cordic_softmax_reference)
+    rows = []
+    for m, n in ((SLOTS, 64), (16, 64), (8, 4096)):
+        x = torch.randn((m, n), generator=gen, device=dev) * 2
+        lv = softmax_lv_stages(n, "fxp8")
+        got = cordic_softmax(x, precision="fxp8")
+        ref = cordic_softmax_reference(x, precision="fxp8")
+        raw = cordic_softmax(x, hr_stages=4, lv_stages=lv)
+        raw_ref = cordic_softmax_plain(x, 4, lv)
+        torch.cuda.synchronize()
+        for a, b, what in ((got, ref, "FxP8 op"), (raw, raw_ref, "rows")):
+            if not torch.equal(a, b):
+                fail(f"cordic_softmax [{m}, {n}] ({what}): max |err| "
+                     f"{(a - b).abs().max().item()}, not bit-equal to the "
+                     "plain version")
+        if (raw.sum(-1) - 1).abs().max().item() > n * 2.0 ** -(lv - 1):
+            fail(f"cordic_softmax [{m}, {n}]: rows do not sum to 1")
+        ms = timed(lambda: cordic_softmax(x, hr_stages=4, lv_stages=lv), 20,
+                   "cordic_softmax_kernel")
+        pms = timed(lambda: cordic_softmax_plain(x, 4, lv), 3)
+        bms, by = bound_ms(8.0 * m * n, CORDIC_SOFTMAX_OPS * m * n,
+                           F32_OPS_PER_S)
+        rows.append(dict(shape=(m, n), ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, max_abs_err=0.0))
+        print(f"kernel cordic_softmax [{m}, {n}] lv={lv}: {ms:.4f} ms "
+              f"(plain {pms:.4f} ms, bound {bms:.6f} ms by {by}), "
+              f"bit-equal", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
@@ -280,13 +421,13 @@ def serve_tokens(engine, reqs):
     return [o.tokens for o in finished], finished, dt
 
 
-def check_phase(dev):
+def check_phase(dev, arch):
     """The reduced model through the kernels and through the plain path,
     both on the card: the same greedy tokens."""
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.launch.serve import build_engine, make_requests
-    cfg = get_config("qwen2_5_14b").reduced()
+    cfg = get_config(arch).reduced()
     toks = {}
     for backend in ("kernels", "reference"):
         eng = build_engine(cfg, PrecisionPolicy.flexpe(8, backend=backend),
@@ -295,21 +436,40 @@ def check_phase(dev):
         reqs = make_requests(cfg, 6, 32, 16, mixed=True, seed=0)
         toks[backend] = serve_tokens(eng, reqs)[0]
     if toks["kernels"] != toks["reference"]:
-        fail(f"reduced model: kernels {toks['kernels']} != plain "
+        fail(f"reduced {arch}: kernels {toks['kernels']} != plain "
              f"{toks['reference']}")
-    print(f"check reduced qwen2_5_14b: kernels == plain path on the card, "
+    print(f"check reduced {arch}: kernels == plain path on the card, "
           f"{sum(map(len, toks['kernels']))} greedy tokens", flush=True)
 
 
-def serve_phase(dev):
+#: each kernel wrapper's name and the name of its device record
+RECORDS = {"fxp_gemm_fused": "fxp_gemm_fused_kernel",
+           "paged_attention_float": "paged_attention_kernel",
+           "cordic_af": "cordic_af_kernel",
+           "cordic_softmax": "cordic_softmax_kernel"}
+
+
+def launches_per_decode_step(cfg) -> dict:
+    """The launches one decode step must make: per layer the q/k/v/o
+    GEMMs, one attention, and the FFN's GEMMs (w1/w3/w2, or the three
+    expert banks and the three shared-expert GEMMs of a MoE block, whose
+    expert and shared activations and router softmax are one CORDIC
+    launch each); one lm_head GEMM."""
+    moe = cfg.family == "moe"
+    return {"fxp_gemm_fused": cfg.n_layers * (4 + (6 if moe else 3)) + 1,
+            "paged_attention_float": cfg.n_layers,
+            "cordic_af": 2 * cfg.n_layers if moe else 0,
+            "cordic_softmax": cfg.n_layers if moe else 0}
+
+
+def serve_phase(dev, arch):
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
-    from repro_torch.kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused
-    from repro_torch.kernels.paged_attention.paged_attention import (
-        paged_attention_float)
-    from repro_torch.launch.serve import build_engine, make_requests
-    cfg = get_config("qwen2_5_14b")
+    from repro_torch.launch.serve import (KERNELS, build_engine,
+                                          launch_counts, make_requests)
+    cfg = get_config(arch)
     gen_tokens, prompt_len = 16, 64
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = build_engine(cfg, PrecisionPolicy.flexpe(8, backend="kernels"),
                           seed=0, device=dev, max_slots=SLOTS,
@@ -317,13 +477,17 @@ def serve_phase(dev):
                           kv_block_size=16, overlap=True)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    print(f"serve setup: full-width qwen2_5_14b, {cfg.n_layers} layers, "
-          f"random weights quantized to FxP8 in {setup_s:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
-          flush=True)
+    gib = 2 ** 30
+    setup_peak = torch.cuda.max_memory_allocated() / gib
+    print(f"serve setup: full-width {arch}, {cfg.n_layers} layers, random "
+          f"weights quantized to FxP8 in {setup_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB on the card, "
+          f"peak {setup_peak:.2f} GiB while building", flush=True)
+    expect = launches_per_decode_step(cfg)
+    path = [name for name, n in expect.items() if n]
 
     def counts():
-        return fxp_gemm_fused.launches, paged_attention_float.launches
+        return tuple(launch_counts()[name] for name in path)
 
     # each decode step: its span on the device stream (events, no sync),
     # the host time to enqueue it, and the kernel launches it made
@@ -341,39 +505,45 @@ def serve_phase(dev):
         e.record()
         c1 = counts()
         spans.append((s, e, time.perf_counter() - h0,
-                      (c1[0] - c0[0], c1[1] - c0[1])))
+                      tuple(b - a for a, b in zip(c0, c1))))
         return out
     ex.decode_and_sample = timed_decode
 
     reqs = make_requests(cfg, 8, prompt_len, gen_tokens, mixed=True, seed=0)
-    fxp_gemm_fused.launches = 0
-    paged_attention_float.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for name in KERNELS:
+        KERNELS[name].launches = 0
     toks, finished, dt = serve_tokens(engine, reqs)
-    launches = dict(zip(("fxp_gemm_fused", "paged_attention_float"),
-                        counts()))
+    launches = {name: KERNELS[name].launches for name in path}
+    serve_peak = torch.cuda.max_memory_allocated() / gib
     n_decode = len(spans)
     dev_ms = statistics.median(s.elapsed_time(e) for s, e, _, _ in spans)
     host_ms = 1e3 * statistics.median(h for _, _, h, _ in spans)
     per_step = sorted({c for _, _, _, c in spans})
 
     if len(finished) != len(reqs):
-        fail(f"serve: {len(finished)} of {len(reqs)} requests finished")
+        fail(f"serve {arch}: {len(finished)} of {len(reqs)} requests "
+             "finished")
     for o in finished:
         if len(o.tokens) != gen_tokens or not all(
                 0 <= t < cfg.vocab for t in o.tokens):
-            fail(f"serve: request {o.id} returned {o.tokens}")
+            fail(f"serve {arch}: request {o.id} returned {o.tokens}")
     for name, n in launches.items():
         if n == 0:
-            fail(f"serve: kernel {name} was never launched")
+            fail(f"serve {arch}: kernel {name} was never launched")
+    if per_step != [tuple(expect[name] for name in path)]:
+        fail(f"serve {arch}: launches per decode step {per_step} of "
+             f"{path}, the model needs {[expect[n] for n in path]}")
     st = engine.stats()
     total = st["prompt_tokens"] + st["generated_tokens"]
-    print(f"serve: {len(finished)} requests, {st['prompt_tokens']} prompt + "
-          f"{st['generated_tokens']} generated tokens in {dt:.3f} s = "
-          f"{total / dt:.1f} tok/s ({st['generated_tokens'] / dt:.1f} "
+    print(f"serve {arch}: {len(finished)} requests, {st['prompt_tokens']} "
+          f"prompt + {st['generated_tokens']} generated tokens in {dt:.3f} "
+          f"s = {total / dt:.1f} tok/s ({st['generated_tokens'] / dt:.1f} "
           f"generated tok/s); {n_decode} decode steps, median "
           f"{dev_ms:.2f} ms on the device stream, {host_ms:.2f} ms to "
-          f"enqueue; launches {launches}, per decode step (GEMM, "
-          f"attention) {per_step}", flush=True)
+          f"enqueue; launches {launches}, per decode step "
+          f"{dict(zip(path, per_step[0]))}; peak {serve_peak:.2f} GiB on "
+          f"the card while serving", flush=True)
 
     # rerun: the same tokens; its middle decode step synced on both sides
     # and traced, so the trace holds that step's kernels and nothing else
@@ -392,7 +562,7 @@ def serve_phase(dev):
             torch.cuda.synchronize()
             trace["wall_ms"] = 1e3 * (time.perf_counter() - h0)
             c1 = counts()
-        trace["counted"] = (c1[0] - c0[0], c1[1] - c0[1])
+        trace["counted"] = tuple(b - a for a, b in zip(c0, c1))
         trace["records"] = device_records(prof)
         return out
     ex.decode_and_sample = traced_decode
@@ -400,36 +570,55 @@ def serve_phase(dev):
         cfg, 8, prompt_len, gen_tokens, mixed=True, seed=0))
     ex.decode_and_sample = decode
     if again != toks:
-        fail("serve: rerun of the same workload gave other tokens")
-    print(f"serve rerun: identical tokens ({dt2:.3f} s); first request "
-          f"{toks[0]}", flush=True)
+        fail(f"serve {arch}: rerun of the same workload gave other tokens")
+    print(f"serve {arch} rerun: identical tokens ({dt2:.3f} s); first "
+          f"request {toks[0]}", flush=True)
 
     rec = trace["records"]
-    n_gemm, gemm_ms = matching(rec, "fxp_gemm_fused_kernel")
-    n_attn, attn_ms = matching(rec, "paged_attention_kernel")
+    kern = {name: matching(rec, RECORDS[name]) for name in path}
     n_all, all_ms = matching(rec, None)
-    if (n_gemm, n_attn) != trace["counted"]:
-        fail(f"traced decode step: {n_gemm} GEMM and {n_attn} attention "
-             f"kernel records, the counters say {trace['counted']}")
+    if tuple(kern[name][0] for name in path) != trace["counted"]:
+        fail(f"traced decode step of {arch}: kernel records "
+             f"{ {n: c for n, (c, _) in kern.items()} }, the counters say "
+             f"{trace['counted']}")
+    kern_ms = sum(ms for _, ms in kern.values())
     idle = 1.0 - all_ms / trace["wall_ms"]
-    print(f"traced decode step (rerun step {target} of {n_decode}, synced, "
-          f"under the profiler): {trace['wall_ms']:.3f} ms wall; device "
-          f"time {all_ms:.3f} ms in {n_all} records = {n_gemm} GEMM "
-          f"kernels {gemm_ms:.3f} ms + {n_attn} attention kernels "
-          f"{attn_ms:.3f} ms + {n_all - n_gemm - n_attn} other "
-          f"{all_ms - gemm_ms - attn_ms:.3f} ms; device idle "
-          f"{100 * idle:.1f}% of the step", flush=True)
+    print(f"traced decode step of {arch} (rerun step {target} of "
+          f"{n_decode}, synced, under the profiler): "
+          f"{trace['wall_ms']:.3f} ms wall; device time {all_ms:.3f} ms in "
+          f"{n_all} records = " + " + ".join(
+              f"{c} {name} {ms:.3f} ms" for name, (c, ms) in kern.items())
+          + f" + {n_all - sum(c for c, _ in kern.values())} other "
+          f"{all_ms - kern_ms:.3f} ms; device idle {100 * idle:.1f}% of the "
+          "step", flush=True)
     top = sorted(rec.items(), key=lambda kv: -kv[1][1])[:8]
-    print("traced decode step, largest device records: " + "; ".join(
-        f"{k[:60]} x{c} {ms:.3f} ms" for k, (c, ms) in top), flush=True)
+    print(f"traced decode step of {arch}, largest device records: "
+          + "; ".join(f"{k[:60]} x{c} {ms:.3f} ms" for k, (c, ms) in top),
+          flush=True)
+    ex.decode_and_sample = decode
     return launches, dict(
+        arch=arch, layers=cfg.n_layers, setup_s=setup_s,
+        gib_on_card=torch.cuda.memory_allocated() / gib,
+        setup_peak_gib=setup_peak, serve_peak_gib=serve_peak,
         tok_s=total / dt, generated_tok_s=st["generated_tokens"] / dt,
         decode_ms=dev_ms, enqueue_ms=host_ms, seconds=dt,
-        launches_per_decode_step=per_step,
+        launches_per_decode_step=dict(zip(path, per_step[0])),
         traced_step=dict(wall_ms=trace["wall_ms"], device_ms=all_ms,
-                         gemm_ms=gemm_ms, gemm_launches=n_gemm,
-                         attention_ms=attn_ms, attention_launches=n_attn,
-                         idle_share=idle))
+                         idle_share=idle, kernels={
+                             name: dict(launches=c, ms=ms)
+                             for name, (c, ms) in kern.items()}))
+
+
+def kernel_entry(name, source, replaces, row, launches, **extra):
+    return dict({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches["deepseek_moe_16b"]
+                 .get(name, 0), "max_abs_err": row["max_abs_err"],
+                 "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": None, "timing": TIMING["source"],
+                 "launches_by_path": {arch: n.get(name, 0)
+                                      for arch, n in launches.items()}},
+                **extra)
 
 
 def main():
@@ -457,37 +646,50 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(0)
     gemm_rows, gemm_err = gemm_phase(dev, gen)
+    batched_gemm_phase(dev, torch.Generator(device=dev).manual_seed(2))
     attn = attention_phase(dev, torch.Generator(device=dev).manual_seed(1))
-    check_phase(dev)
-    launches, serve_stats = serve_phase(dev)
+    af_rows = cordic_af_phase(dev, torch.Generator(device=dev).manual_seed(3))
+    sm_rows = cordic_softmax_phase(
+        dev, torch.Generator(device=dev).manual_seed(4))
+    for arch in ("qwen2_5_14b", "deepseek_moe_16b"):
+        check_phase(dev, arch)
+    launches, summaries = {}, []
+    for arch in ("qwen2_5_14b", "deepseek_moe_16b"):
+        launches[arch], summary = serve_phase(dev, arch)
+        summaries.append(summary)
+        gc.collect()                 # the engine and its weights go here
+        torch.cuda.empty_cache()
 
     w1 = next(r for r in gemm_rows if r["af"] == "silu")
+    w1["max_abs_err"] = gemm_err
     kernels = [
-        {"name": "fxp_gemm_fused", "route": "cuda",
-         "source": "src/repro_torch/csrc/fxp_gemm.cu",
-         "replaces": "src/repro/kernels/fxp_gemm/fxp_gemm.py:158",
-         "launches": launches["fxp_gemm_fused"],
-         "max_abs_err": gemm_err, "ms": w1["ms"],
-         "plain_ms": w1["plain_ms"], "bound_ms": w1["bound_ms"],
-         "bound_by": w1["bound_by"], "library_ms": None,
-         "timing": TIMING["source"], "call_ms": w1["call_ms"],
-         "shape": f"M={w1['m']} K={w1['k']} N={w1['n']} +silu (w1)"},
-        {"name": "paged_attention_float", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention/paged_attention.py"
-                     ":172",
-         "launches": launches["paged_attention_float"],
-         "max_abs_err": attn["max_abs_err"], "ms": attn["ms"],
-         "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
-         "bound_by": attn["bound_by"], "library_ms": None,
-         "timing": TIMING["source"],
-         "shape": "B=4 KV=8 g=5 hd=128 bs=16, 1024-2000 cached tokens, "
-                  "int8 pool, CORDIC softmax"},
+        kernel_entry("fxp_gemm_fused", "src/repro_torch/csrc/fxp_gemm.cu",
+                     "src/repro/kernels/fxp_gemm/fxp_gemm.py:158", w1,
+                     launches, call_ms=w1["call_ms"],
+                     shape=f"M={w1['m']} K={w1['k']} N={w1['n']} +silu "
+                           "(Qwen2.5-14B w1)"),
+        kernel_entry("paged_attention_float",
+                     "src/repro_torch/csrc/paged_attention.cu",
+                     "src/repro/kernels/paged_attention/paged_attention.py"
+                     ":172", attn, launches,
+                     shape="B=4 KV=8 g=5 hd=128 bs=16, 1024-2000 cached "
+                           "tokens, int8 pool, CORDIC softmax"),
+        kernel_entry("cordic_af", "src/repro_torch/csrc/cordic_af.cu",
+                     "src/repro/kernels/cordic_af/cordic_af.py:89",
+                     af_rows[0], launches,
+                     shape="silu [1, 64, 4, 1408] (expert activations at "
+                           "decode)"),
+        kernel_entry("cordic_softmax", "src/repro_torch/csrc/cordic_softmax.cu",
+                     "src/repro/kernels/cordic_softmax/cordic_softmax.py:33",
+                     sm_rows[0], launches,
+                     shape="[4, 64], lv 12 (router at decode)"),
     ]
-    print("kernels: " + ", ".join(f"{k['name']} launched {k['launches']}x"
-                                  for k in kernels), flush=True)
-    print(f"serve summary: {json.dumps(serve_stats)}; total "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print("kernels: " + ", ".join(
+        f"{k['name']} launched {k['launches_by_path']}" for k in kernels),
+        flush=True)
+    for summary in summaries:
+        print(f"serve summary: {json.dumps(summary)}", flush=True)
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 modes (the hardware's precision_sel / Sel_AF registers as a per-model
 policy object).
 
-`qmatmul` is the single matmul entry point of the models. The policy's
-`backend` field ('reference' or 'kernels', see `core.backend`) picks
-the implementation; weights may be float tensors or quantize-once
-`QuantizedTensor`s on either backend.
+`qmatmul` is the single matmul entry point of the models and `qeinsum`
+its sibling for the MoE expert banks. The policy's `backend` field
+('reference' or 'kernels', see `core.backend`) picks the implementation;
+weights may be float tensors or quantize-once `QuantizedTensor`s on
+either backend. `PrecisionPolicy.act` and `.softmax` are the activation
+and softmax ops of the MoE family (and of integer attention, later).
 """
 from __future__ import annotations
 
@@ -14,12 +16,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .activation import default_stages, flex_af, softmax_lv_stages
 from .backend import resolve as _resolve_backend
 from .fxp import FORMATS, fake_quant, quantize
 from .qtensor import QuantizedTensor
 from .tiers import TIER_LADDER, TIERS, PrecisionTier, tier_index
 
-__all__ = ["PrecisionPolicy", "qmatmul", "QuantizedActivation",
+__all__ = ["PrecisionPolicy", "qmatmul", "qeinsum", "QuantizedActivation",
            "quantize_activation", "PrecisionTier", "TIERS", "TIER_LADDER",
            "tier_index", "tier_policy", "policy_tier"]
 
@@ -40,10 +43,6 @@ class PrecisionPolicy:
       datapath; 'exact' uses exp and a true divide.
     int_attention: decode attention on integer KV codes (not ported yet).
     backend: 'reference' or 'kernels' (see `core.backend`).
-
-    The activation and softmax ops of the reference policy (`act`,
-    `softmax`) serve the MoE/SSM families and integer attention; they come
-    with those slices (ROADMAP.md queue 1, item 7).
     """
     name: str = "bf16"
     matmul: Optional[str] = None
@@ -90,6 +89,38 @@ class PrecisionPolicy:
 
     def resolved_backend(self) -> str:
         return _resolve_backend(self.backend)
+
+    # -- ops ---------------------------------------------------------------
+    def act(self, x: torch.Tensor, af: str, axis: int = -1) -> torch.Tensor:
+        """The Flex-PE AF under this policy. CORDIC AFs go to dispatch on
+        both backends: the CORDIC AF kernel on the kernels backend, the
+        same op with its plain version on the reference backend. (The
+        reference package routes only its Pallas backend there; its plain
+        backend snaps a bf16 input on the bf16 grid where the kernel op
+        snaps in f32, so its two backends disagree on bf16 activations:
+        ROADMAP.md queue 3.) Exact AFs take `flex_af`."""
+        if self.af_impl == "cordic" and af != "softmax":
+            return _dispatch().act(x, af, self,
+                                   backend=self.resolved_backend())
+        return flex_af(x, af, precision=self.af, impl=self.af_impl,
+                       axis=axis)
+
+    def softmax(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """Softmax under this policy: exact unless `attn_softmax` is
+        'cordic'. A CORDIC softmax over the last axis goes to dispatch on
+        both backends (the kernel, or the same op with its plain version,
+        both summing each row in the kernel's fixed order); over another
+        axis it is `flex_af` with LV stages for the row length."""
+        if self.attn_softmax != "cordic":
+            return flex_af(x, "softmax", precision=None, impl="exact",
+                           axis=axis)
+        if axis in (-1, x.dim() - 1):
+            return _dispatch().softmax(x, self,
+                                       backend=self.resolved_backend())
+        hr, _ = default_stages(self.af)
+        lv = softmax_lv_stages(x.shape[axis], self.af)
+        return flex_af(x, "softmax", precision=self.af, impl="cordic",
+                       stages=(hr, lv), axis=axis)
 
 
 def tier_policy(tier: str, backend: str = "reference",
@@ -154,3 +185,27 @@ def qmatmul(x, w, policy: Optional[PrecisionPolicy],
         x = fake_quant(x, FORMATS[policy.matmul])
         w = fake_quant(w, FORMATS[policy.matmul])
     return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+#: MoE expert-bank einsums: batched per-expert GEMMs with the contraction
+#: on x's last / w's middle axis, served by `kernels.dispatch.expert_matmul`.
+_EXPERT_BANK_SPECS = frozenset({"gecd,edf->gecf", "gecf,efd->gecd"})
+
+
+def qeinsum(spec: str, x: torch.Tensor, w,
+            policy: Optional[PrecisionPolicy]) -> torch.Tensor:
+    """Einsum sibling of `qmatmul`. The MoE expert-bank specs on the
+    kernels backend or with a `QuantizedTensor` bank go to
+    `kernels.dispatch.expert_matmul` (the same exact-integer contract as
+    `qmatmul`); anything else is the fake-quant f32 einsum."""
+    be = _resolve_backend(policy.backend if policy is not None else None)
+    if spec in _EXPERT_BANK_SPECS and (be == "kernels"
+                                       or isinstance(w, QuantizedTensor)):
+        return _dispatch().expert_matmul(x, w, policy, backend=be)
+    if isinstance(w, QuantizedTensor):
+        w = w.dequantize(x.dtype)
+    xq, wq = x, w
+    if policy is not None and policy.matmul is not None:
+        xq = fake_quant(x, FORMATS[policy.matmul])
+        wq = fake_quant(w, FORMATS[policy.matmul])
+    return torch.einsum(spec, xq.float(), wq.float()).to(x.dtype)

@@ -94,8 +94,8 @@ def quantize_tensor(w: torch.Tensor, fmt_name: str,
                     packed: Optional[bool] = None) -> QuantizedTensor:
     """Quantize a float weight [.., K, N] once, for serving-time reuse.
     Stacked [L, K, N] weights quantize one layer at a time (the scale is
-    per (layer, channel) either way), which bounds the f32 temporaries of
-    a full-width model to one layer."""
+    per (layer, channel) either way), into one preallocated code tensor,
+    which bounds the temporaries of a full-width model to one layer."""
     fmt = FORMATS[fmt_name]
     if packed is None:
         packed = fmt.bits == 4
@@ -103,11 +103,15 @@ def quantize_tensor(w: torch.Tensor, fmt_name: str,
         raise ValueError("lane-packed storage is FxP4-only "
                          f"(got {fmt_name})")
     if w.dim() > 2:
-        parts = [quantize_tensor(w[i], fmt_name, packed)
-                 for i in range(w.shape[0])]
-        return QuantizedTensor(torch.stack([p.data for p in parts]),
-                               torch.stack([p.scale for p in parts]),
-                               fmt_name, w.shape[-1], packed)
+        first = quantize_tensor(w[0], fmt_name, packed)
+        data = first.data.new_empty((w.shape[0],) + tuple(first.data.shape))
+        scale = first.scale.new_empty((w.shape[0],)
+                                      + tuple(first.scale.shape))
+        data[0], scale[0] = first.data, first.scale
+        for i in range(1, w.shape[0]):
+            part = quantize_tensor(w[i], fmt_name, packed)
+            data[i], scale[i] = part.data, part.scale
+        return QuantizedTensor(data, scale, fmt_name, w.shape[-1], packed)
     codes, scale = quantize(w, fmt, axis=-2)             # per channel
     n = w.shape[-1]
     if packed:
@@ -127,14 +131,20 @@ def _is_weight_leaf(v: Any) -> bool:
             and v.is_floating_point())
 
 
-def map_weight_leaves(params: Any, fn) -> Any:
+def map_weight_leaves(params: Any, fn, consume: bool = False) -> Any:
     """Rebuild `params` with `fn` applied to every matmul-weight leaf
-    (float leaves with ndim >= 2 under a key in `QUANT_PARAM_KEYS`)."""
+    (float leaves with ndim >= 2 under a key in `QUANT_PARAM_KEYS`).
+    `consume` pops each such leaf from `params` as it is converted, so a
+    caller that holds no other reference frees it at once."""
     def walk(node):
         if isinstance(node, dict):
-            return {k: fn(v) if k in QUANT_PARAM_KEYS and _is_weight_leaf(v)
-                    else walk(v)
-                    for k, v in node.items()}
+            out = {}
+            for k in list(node):
+                if k in QUANT_PARAM_KEYS and _is_weight_leaf(node[k]):
+                    out[k] = fn(node.pop(k) if consume else node[k])
+                else:
+                    out[k] = walk(node[k])
+            return out
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
         return node
@@ -143,10 +153,14 @@ def map_weight_leaves(params: Any, fn) -> Any:
 
 
 def quantize_params(params: Any, fmt_name: str,
-                    packed: Optional[bool] = None) -> Any:
-    """Model surgery: replace matmul-weight leaves with QuantizedTensor."""
+                    packed: Optional[bool] = None,
+                    consume: bool = False) -> Any:
+    """Model surgery: replace matmul-weight leaves with QuantizedTensor.
+    `consume` drops each float leaf from `params` once it is quantized
+    (a full-width model then never holds both trees whole)."""
     return map_weight_leaves(
-        params, lambda w: quantize_tensor(w, fmt_name, packed=packed))
+        params, lambda w: quantize_tensor(w, fmt_name, packed=packed),
+        consume=consume)
 
 
 def _leaves(node):

@@ -9,6 +9,12 @@
 // accumulator: integer sums are exact in any order, so the result is
 // bit-identical to the plain version for K * 127^2 < 2^31.
 //
+// The batched entry runs E such products in one launch, one per MoE
+// expert: A [E, M, K], B [E, K, N], scale [E, N], out [E, M, N]. The grid's
+// z axis walks (expert, row tile); every expert's blocks compute exactly
+// what the single-matrix launch computes on that expert's operands, so
+// the result is bit-equal to a loop of single launches.
+//
 // What bounds it: at decode M is the slot count (4), so every weight byte
 // is used M times — about 2M integer operations per byte, far below the
 // card's ~590 int8 operations per byte of memory bandwidth. The kernel is
@@ -26,6 +32,13 @@
 //    any order), and the last block to arrive at a tile — counted by a
 //    per-tile semaphore — applies the epilogue. One launch, as on the TPU.
 //  * Ragged edges are masked (zero codes contribute nothing), never padded.
+//  * Expert banks only (a second instantiation, so the single-matrix
+//    kernel compiles as before): a row of zero codes adds nothing, so a
+//    block skips the products of the rows its staged A slice holds only
+//    zeros in, and when all its rows are zero, its B loads too. At decode
+//    4 tokens route to at most 24 of 64 experts: the unfilled queue slots
+//    cost no products, and an expert no token routes to costs no weight
+//    bytes.
 // Not yet: wgmma / mma.sync tensor cores and TMA (they need a k-major
 // weight layout or an in-shared-memory transpose), packed FxP4 weights and
 // >8-bit codes.
@@ -42,7 +55,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlockN = 128;       // 32 lanes x 4 columns
 constexpr int kMaxKSplit = 1024;   // K rows per block (A slice in smem)
 
-template <int MT>
+template <int MT, bool kExperts>
 __global__ void __launch_bounds__(kThreads)
 fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
                       const int8_t* __restrict__ B,
@@ -53,9 +66,21 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   __shared__ int a_s[MT][kMaxKSplit / 4];
   __shared__ int tile[MT][kBlockN];
   __shared__ int is_last;
+  __shared__ unsigned live;                  // bit m: row m0+m has a code
 
+  int m0 = blockIdx.z * MT;
+  if constexpr (kExperts) {
+    // blockIdx.z = expert * (row tiles) + row tile
+    const int m_tiles = (M + MT - 1) / MT;
+    const int expert = blockIdx.z / m_tiles;
+    A += static_cast<size_t>(expert) * M * K;
+    B += static_cast<size_t>(expert) * K * N;
+    scale += static_cast<size_t>(expert) * N;
+    out += static_cast<size_t>(expert) * M * N;
+    ws += static_cast<size_t>(expert) * M * N;
+    m0 = (blockIdx.z - expert * m_tiles) * MT;
+  }
   const int n0 = blockIdx.x * kBlockN;
-  const int m0 = blockIdx.z * MT;
   const int k0 = blockIdx.y * kps;
   const int k1 = min(K, k0 + kps);
   const int kw = (k1 - k0 + 3) / 4;          // packed words of this slice
@@ -63,26 +88,51 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  // stage A[m0:m0+MT, k0:k1] as words of four k-consecutive codes
+  // stage A[m0:m0+MT, k0:k1] as words of four k-consecutive codes (whole
+  // word loads for the expert banks, whose rows start on a word)
+  if constexpr (kExperts) {
+    if (tid == 0) live = 0;
+    __syncthreads();
+  }
+  const bool a_words = kExperts && K % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(A) % 4 == 0;
+  unsigned rows = 0;
   for (int i = tid; i < MT * kw; i += kThreads) {
     const int m = i / kw;
     const int w = i - m * kw;
     unsigned packed = 0;
+    if (a_words) {
+      if (m0 + m < M) {
+        packed = __ldg(reinterpret_cast<const unsigned*>(
+                           A + static_cast<size_t>(m0 + m) * K + k0) + w);
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * w + j;
-      const unsigned v = (m0 + m < M && k < k1)
-          ? static_cast<unsigned>(static_cast<uint8_t>(
-                A[static_cast<size_t>(m0 + m) * K + k]))
-          : 0u;
-      packed |= v << (8 * j);
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + 4 * w + j;
+        const unsigned v = (m0 + m < M && k < k1)
+            ? static_cast<unsigned>(static_cast<uint8_t>(
+                  A[static_cast<size_t>(m0 + m) * K + k]))
+            : 0u;
+        packed |= v << (8 * j);
+      }
     }
     a_s[m][w] = static_cast<int>(packed);
+    if (kExperts && packed) rows |= 1u << m;
   }
   for (int i = tid; i < MT * kBlockN; i += kThreads) {
     tile[i / kBlockN][i % kBlockN] = 0;
   }
+  // expert banks: rows of zero codes contribute exact zeros, so skip their
+  // products, and the B loads of a slice that has no other rows
+  unsigned live_rows = ~0u;
+  if constexpr (kExperts) {
+    rows = __reduce_or_sync(0xffffffffu, rows);
+    if (lane == 0 && rows) atomicOr(&live, rows);
+  }
   __syncthreads();
+  if constexpr (kExperts) live_rows = live;
+  const int g0 = live_rows ? warp : kw;
 
   int acc[MT][4];
 #pragma unroll
@@ -92,7 +142,7 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   }
 
   const int n = n0 + 4 * lane;
-  for (int g = warp; g < kw; g += kWarps) {
+  for (int g = g0; g < kw; g += kWarps) {
     const int kb = k0 + 4 * g;
     unsigned r[4];
 #pragma unroll
@@ -125,9 +175,11 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
                         static_cast<int>(__byte_perm(t1, t3, 0x7632))};
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      const int a = a_s[m][g];
+      if (!kExperts || (live_rows & (1u << m))) {    // uniform block-wide
+        const int a = a_s[m][g];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
+        for (int c = 0; c < 4; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
+      }
     }
   }
 
@@ -178,40 +230,63 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   }
 }
 
-template <int MT>
+template <int MT, bool kExperts>
 cudaError_t launch(const int8_t* a, const int8_t* b, const float* scale,
-                   float* out, int* ws, unsigned* counters, int M, int K,
-                   int N, int kps, int vec, int af, int lv_n,
+                   float* out, int* ws, unsigned* counters, int E, int M,
+                   int K, int N, int kps, int vec, int af, int lv_n,
                    const CordicParams& cp, cudaStream_t stream) {
   const int splits = (K + kps - 1) / kps;
-  dim3 grid((N + kBlockN - 1) / kBlockN, splits, (M + MT - 1) / MT);
-  fxp_gemm_fused_kernel<MT><<<grid, kThreads, 0, stream>>>(
+  dim3 grid((N + kBlockN - 1) / kBlockN, splits, E * ((M + MT - 1) / MT));
+  fxp_gemm_fused_kernel<MT, kExperts><<<grid, kThreads, 0, stream>>>(
       a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
   return cudaGetLastError();
 }
 
+template <bool kExperts>
+int dispatch(const int8_t* a, const int8_t* b, const float* scale, float* out,
+             int* ws, unsigned* counters, int E, int M, int K, int N, int kps,
+             int vec, int af, int lv_n, const CordicParams* cp,
+             void* stream) {
+  const int max_mt = 16;
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || kps <= 0 ||
+      kps > kMaxKSplit || kps % 4 != 0 ||
+      static_cast<long long>(E) * ((M + max_mt - 1) / max_mt) > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 4) {
+    return static_cast<int>(launch<4, kExperts>(
+        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
+        s));
+  }
+  if (M <= 8) {
+    return static_cast<int>(launch<8, kExperts>(
+        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
+        s));
+  }
+  return static_cast<int>(launch<16, kExperts>(
+      a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp, s));
+}
+
 }  // namespace
+
+// E products in one launch: a [E, M, K], b [E, K, N], scale [E, N],
+// out [E, M, N]; ws [E, M, N] and one counter per (expert, tile), zeroed.
+extern "C" int fxp_gemm_fused_batched(const int8_t* a, const int8_t* b,
+                                      const float* scale, float* out, int* ws,
+                                      unsigned* counters, int E, int M, int K,
+                                      int N, int kps, int vec, int af,
+                                      int lv_n, const CordicParams* cp,
+                                      void* stream) {
+  return dispatch<true>(a, b, scale, out, ws, counters, E, M, K, N, kps, vec,
+                        af, lv_n, cp, stream);
+}
 
 extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
                               const float* scale, float* out, int* ws,
                               unsigned* counters, int M, int K, int N, int kps,
                               int vec, int af, int lv_n,
                               const CordicParams* cp, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps > kMaxKSplit ||
-      kps % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (M <= 4) {
-    err = launch<4>(a, b, scale, out, ws, counters, M, K, N, kps, vec, af,
-                    lv_n, *cp, s);
-  } else if (M <= 8) {
-    err = launch<8>(a, b, scale, out, ws, counters, M, K, N, kps, vec, af,
-                    lv_n, *cp, s);
-  } else {
-    err = launch<16>(a, b, scale, out, ws, counters, M, K, N, kps, vec, af,
-                     lv_n, *cp, s);
-  }
-  return static_cast<int>(err);
+  return dispatch<false>(a, b, scale, out, ws, counters, 1, M, K, N, kps, vec,
+                         af, lv_n, cp, stream);
 }

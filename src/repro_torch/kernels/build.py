@@ -31,7 +31,8 @@ __all__ = ["KERNEL_SOURCES", "build", "library", "CordicParams",
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("fxp_gemm", "paged_attention")
+KERNEL_SOURCES = ("fxp_gemm", "paged_attention", "cordic_af",
+                  "cordic_softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

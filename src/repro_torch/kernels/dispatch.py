@@ -2,7 +2,8 @@
 
 A small registry maps (op, backend) -> implementation:
 
-    op      : 'matmul' | 'paged_attention'
+    op      : 'matmul' | 'expert_matmul' | 'act' | 'softmax' |
+              'paged_attention'
     backend : 'reference' (plain PyTorch path)
               'kernels'   (the Hopper kernels; their plain versions when
                            handed CPU tensors)
@@ -13,7 +14,10 @@ row's result depends on what the other rows hold, idle rows included),
 the activation scale folds into the weight's per-channel scale in f32,
 the kernel runs the integer GEMM with the optional fused CORDIC AF, and
 the AF result snaps to the policy's AF grid. The kernel masks ragged
-edges, so there is no padding and no slice.
+edges, so there is no padding and no slice. `expert_matmul` runs a MoE
+expert bank: the reference's loop of per-expert matmuls on the plain
+backend, one batched launch of the same GEMM kernel on the kernels
+backend, with the same per-expert activation codes and scales.
 """
 from __future__ import annotations
 
@@ -25,13 +29,17 @@ from ..core.activation import default_stages, flex_af
 from ..core.fxp import FORMATS, fake_quant, quantize
 from ..core.precision import QuantizedActivation, quantize_activation
 from ..core.qtensor import QuantizedTensor
+from .cordic_af.cordic_af import KERNEL_AFS, cordic_af, cordic_af_reference
+from .cordic_softmax.cordic_softmax import (cordic_softmax,
+                                            cordic_softmax_reference)
 from .fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
-                                fxp_gemm_fused_plain)
+                                fxp_gemm_fused_batched, fxp_gemm_fused_plain)
 from .paged_attention.ops import paged_attention as _paged_attention
 from .paged_attention.paged_attention import (paged_attention_float,
                                               paged_attention_float_plain)
 
-__all__ = ["register", "lookup", "matmul", "paged_attention", "FUSED_AFS"]
+__all__ = ["register", "lookup", "matmul", "expert_matmul", "act",
+           "softmax", "paged_attention", "FUSED_AFS"]
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 
@@ -123,21 +131,123 @@ def _matmul_kernels(x, w, policy, af=None):
             "and >8-bit codes are ROADMAP.md queue 2, item 7")
     if w.ndim != 2:
         raise ValueError("kernel matmul wants a 2-D (per-layer) weight")
-    # fuse the AF into the epilogue only on the CORDIC datapath; 'exact'
-    # AF policies apply the shared accumulator-AF contract as a post-op
+    scale = (xa.scale * w.scale).float().expand(1, w.n)
+    out = _fused_gemm(fxp_gemm_fused, xa.codes, w.data, scale, af, policy)
+    return out.reshape(*xa.lead, w.n).to(xa.dtype)
+
+
+def _fused_gemm(gemm, codes, w_codes, scale, af, policy):
+    """`gemm` (the single or the batched kernel entry) with the AF fused
+    into its epilogue on the CORDIC datapath; 'exact' AF policies apply
+    the shared accumulator-AF contract as a post-op."""
     fuse_af = (af is not None and af in FUSED_AFS
                and (policy is None or policy.af_impl == "cordic"))
-    scale = (xa.scale * w.scale).float().expand(1, w.n)
     hr, lv = default_stages(policy.af if policy is not None else None)
-    out = fxp_gemm_fused(xa.codes, w.data, scale,
-                         af=af if fuse_af else None, hr_stages=hr,
-                         lv_stages=lv)
+    out = gemm(codes, w_codes, scale, af=af if fuse_af else None,
+               hr_stages=hr, lv_stages=lv)
     if fuse_af:
         if policy is not None and policy.af is not None:
             out = fake_quant(out, FORMATS[policy.af])
     elif af is not None:
         out = _af_on_accumulator(out, af, policy)
-    return out.reshape(*xa.lead, w.n).to(xa.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE expert banks
+# ---------------------------------------------------------------------------
+
+def _experts(w):
+    """[E, K, N] bank -> its E per-expert [K, N] weights."""
+    if isinstance(w, QuantizedTensor):
+        return [w.layer(i) for i in range(w.data.shape[0])]
+    return list(w)
+
+
+def _by_expert(x, e):
+    """x [..., E, C, K] -> ([E, rows, K] queues, the inverse for an
+    [E, rows, N] result)."""
+    *lead, e_x, c, k = x.shape
+    if e_x != e:
+        raise ValueError(f"x {tuple(x.shape)} has {e_x} experts, the bank "
+                         f"{e}")
+
+    def back(out):
+        return out.reshape(e, *lead, c, out.shape[-1]).movedim(0, -3)
+    return x.movedim(-3, 0).reshape(e, -1, k), back
+
+
+def _expert_loop(matmul_fn, x, w, policy, af):
+    """The reference's expert_matmul: each expert's [G*C, K] queue through
+    `matmul_fn` on its own (so its activation is quantized per tensor on
+    its own)."""
+    experts = _experts(w)
+    xe, back = _by_expert(x, len(experts))
+    return back(torch.stack([matmul_fn(xe[i], w_i, policy, af=af)
+                             for i, w_i in enumerate(experts)]))
+
+
+@register("expert_matmul", "reference")
+def _expert_matmul_reference(x, w, policy, af=None):
+    return _expert_loop(_matmul_reference, x, w, policy, af)
+
+
+@register("expert_matmul", "kernels")
+def _expert_matmul_kernels(x, w, policy, af=None):
+    """One launch for the whole bank: every expert's activation codes and
+    scale in one pass (a per-expert amax over [E, G*C, K], which is what
+    each expert's own per-tensor amax gives: a max does not depend on
+    order), the folded [E, 1, N] scales, then the batched GEMM kernel.
+    Float or packed banks and >8-bit formats take the per-expert loop."""
+    fmt_x = (FORMATS[policy.matmul if policy is not None
+                     and policy.matmul is not None else w.fmt_name]
+             if isinstance(w, QuantizedTensor) else None)
+    if (fmt_x is None or w.packed or w.fmt.bits > 8 or fmt_x.bits > 8
+            or w.ndim != 3):
+        return _expert_loop(_matmul_kernels, x, w, policy, af)
+    xe, back = _by_expert(x, w.data.shape[0])
+    codes, xs = quantize(xe.float(), fmt_x, axis=(1, 2))
+    scale = (xs * w.scale).float()                       # [E, 1, N]
+    out = _fused_gemm(fxp_gemm_fused_batched, codes, w.data, scale, af,
+                      policy)
+    return back(out.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# activation and softmax
+# ---------------------------------------------------------------------------
+
+# `PrecisionPolicy.act` and `.softmax` come here only on CORDIC policies,
+# and `.softmax` only over the last axis.
+
+@register("act", "reference")
+def _act_reference(x, af, policy):
+    """The CORDIC AF op with its plain version (`flex_af` for an AF the
+    kernel does not compute: identity)."""
+    if af in KERNEL_AFS:
+        return cordic_af_reference(x, af, precision=policy.af)
+    return flex_af(x, af, precision=policy.af, impl="cordic")
+
+
+@register("act", "kernels")
+def _act_kernels(x, af, policy):
+    """The CORDIC AF kernel (its plain version on the CPU)."""
+    if af in KERNEL_AFS:
+        return cordic_af(x, af, precision=policy.af)
+    return _act_reference(x, af, policy)
+
+
+@register("softmax", "reference")
+def _softmax_reference(x, policy):
+    """The CORDIC softmax op with its plain version (the kernel's row-sum
+    order)."""
+    return cordic_softmax_reference(x, precision=policy.af)
+
+
+@register("softmax", "kernels")
+def _softmax_kernels(x, policy):
+    """The CORDIC softmax kernel (its plain version on the CPU)."""
+    return cordic_softmax(x, precision=policy.af)
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +278,22 @@ def _paged_attention_kernels(q, k_pool, v_pool, k_scale, v_scale,
 
 def matmul(x, w, policy, backend: str, af: Optional[str] = None):
     return lookup("matmul", backend)(x, w, policy, af=af)
+
+
+def expert_matmul(x, w, policy, backend: str, af: Optional[str] = None):
+    """MoE expert-bank GEMM: x [..., E, C, K] @ w [E, K, N] ->
+    [..., E, C, N] in x.dtype; `w` a float bank or a 3-D QuantizedTensor
+    (one layer of the quantized [L, E, K, N] bank)."""
+    return lookup("expert_matmul", backend)(x, w, policy, af=af)
+
+
+def act(x, af: str, policy, backend: str):
+    return lookup("act", backend)(x, af, policy)
+
+
+def softmax(x, policy, backend: str):
+    """CORDIC softmax over the last axis."""
+    return lookup("softmax", backend)(x, policy)
 
 
 def paged_attention(q, k_pool, v_pool, k_scale, v_scale, block_tables,

@@ -4,6 +4,8 @@
         --policy flexpe-fxp8 --kv-block-size 16 --requests 8 --slots 4 \\
         --prompt-len 64 --mixed --gen 16
 
+`--arch deepseek_moe_16b` serves the MoE family the same way.
+
 Builds random weights from `--seed` (quantize-once FxP codes for an FxP
 policy), a `ServingEngine` over a paged or contiguous KV cache, submits
 `--requests` greedy requests and prints each completion, tok/s and the
@@ -23,11 +25,24 @@ from ..configs.base import ARCH_IDS, get_config
 from ..core.backend import BACKENDS, resolve_device
 from ..core.precision import PrecisionPolicy
 from ..core.qtensor import packed_bytes, quantize_params
+from ..kernels.cordic_af.cordic_af import cordic_af
+from ..kernels.cordic_softmax.cordic_softmax import cordic_softmax
 from ..kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused
 from ..kernels.paged_attention.paged_attention import paged_attention_float
 from ..models import model as M
 from ..serving import Request, SamplingParams, ServingEngine
 from ..serving.scheduler import POLICIES
+
+
+#: the kernel wrappers of the serving path, each with its launch counter
+KERNELS = {"fxp_gemm_fused": fxp_gemm_fused,
+           "paged_attention_float": paged_attention_float,
+           "cordic_af": cordic_af, "cordic_softmax": cordic_softmax}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far} of every kernel of the path."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def make_requests(cfg, n, prompt_len, gen, mixed=False, temp=0.0, top_k=0,
@@ -51,7 +66,7 @@ def build_engine(cfg, policy, *, seed=0, device=None, **engine_kw):
     and the engine over them."""
     params = M.init_params(cfg, seed, device=device)
     if policy.matmul is not None:
-        params = quantize_params(params, policy.matmul)
+        params = quantize_params(params, policy.matmul, consume=True)
     return ServingEngine(cfg, params, policy=policy, seed=seed,
                          device=device, **engine_kw)
 
@@ -111,7 +126,7 @@ def main(argv=None):
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen,
                          mixed=args.mixed, temp=args.temp, top_k=args.top_k,
                          seed=args.seed)
-    gemm0, attn0 = fxp_gemm_fused.launches, paged_attention_float.launches
+    before = launch_counts()
     finished, dt = serve(engine, reqs)
     for out in finished:
         print(f"  req {out.id} done ({out.finish_reason}) "
@@ -124,9 +139,8 @@ def main(argv=None):
           f"{total / dt:.1f} tok/s on {device}, slot utilization "
           f"{st['slot_utilization']:.0%} (policy {args.policy}, backend "
           f"{args.backend}, arch {cfg.name}, {cfg.n_layers} layers)")
-    print(f"kernel launches: fxp_gemm_fused "
-          f"{fxp_gemm_fused.launches - gemm0}, paged_attention_float "
-          f"{paged_attention_float.launches - attn0}")
+    print("kernel launches: " + ", ".join(
+        f"{name} {n - before[name]}" for name, n in launch_counts().items()))
     if engine.paged:
         print(f"paged KV: {st['kv_blocks']} blocks x {st['kv_block_size']} "
               f"tokens, peak in use {st['peak_blocks_used']}")

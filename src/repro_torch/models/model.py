@@ -1,4 +1,5 @@
-"""Top-level model assembly — the dense decoder behind one serving API.
+"""Top-level model assembly — the dense and MoE decoders behind one
+serving API.
 
   init_params(cfg, seed, device)  -> param dict (layer leaves stacked [L, ..])
   init_cache(cfg, batch, max_len, policy, ...) -> serving cache
@@ -7,8 +8,9 @@
 Layer stacks keep the reference's leading [L, ...] axis (so converted
 weights line up leaf for leaf); `decode_step` walks it with a Python loop.
 Serving accepts quantize-once params (`core.qtensor.quantize_params`).
-The MoE, SSM and hybrid families and the training forward are later
-slices (ROADMAP.md queue 1, items 7 and 10).
+The MoE family replaces each block's MLP by `moe.moe_ffn`. The SSM and
+hybrid families and the training forward are later slices (ROADMAP.md
+queue 1, items 7 and 10).
 """
 from __future__ import annotations
 
@@ -21,13 +23,14 @@ from ..core.backend import resolve_device
 from ..core.precision import PrecisionPolicy, qmatmul
 from ..core.qtensor import QuantizedTensor
 from .layers import attention, init_kv_cache, mlp, rmsnorm, step_plan
+from .moe import moe_ffn, moe_init
 
 __all__ = ["init_params", "init_cache", "decode_step", "layer_params",
            "slice_cache_rows", "update_cache_rows", "copy_pool_blocks"]
 
 
-def _require_dense(cfg):
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
+def _require_ported(cfg):
+    if cfg.family not in ("dense", "moe") or cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1, "
             "item 7)")
@@ -46,11 +49,11 @@ def _normal(gen, shape, std, dtype, device):
 
 
 def init_params(cfg, seed: int = 0, device=None, dtype=torch.bfloat16):
-    """Random dense-decoder weights from `seed` (the reference's init
+    """Random decoder weights from `seed` (the reference's init
     distributions: N(0, 1/d_in) projections, N(0, 0.02^2) embedding and
-    lm_head, unit norms, zero biases). Runs on CUDA unless `device` says
-    otherwise."""
-    _require_dense(cfg)
+    lm_head, unit norms, zero biases; `moe.moe_init`'s for the MoE
+    blocks). Runs on CUDA unless `device` says otherwise."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -67,17 +70,22 @@ def init_params(cfg, seed: int = 0, device=None, dtype=torch.bfloat16):
         attn.update({k: torch.zeros((L, n), dtype=dtype, device=dev)
                      for k, n in (("bq", h * hd), ("bk", kvh * hd),
                                   ("bv", kvh * hd))})
-    mlp_p = {"w1": dense(d, ff), "w2": dense(ff, d)}
-    if cfg.act in ("silu", "swiglu"):
-        mlp_p["w3"] = dense(d, ff)
 
     def ones():
         return {"w": torch.ones((L, d), dtype=dtype, device=dev)}
 
+    blocks = {"attn_norm": ones(), "attn": attn, "mlp_norm": ones()}
+    if cfg.family == "moe":
+        blocks["moe"] = moe_init(
+            lambda shape, std, dt: _normal(gen, shape, std, dt, dev), L, cfg,
+            dtype)
+    else:
+        blocks["mlp"] = {"w1": dense(d, ff), "w2": dense(ff, d)}
+        if cfg.act in ("silu", "swiglu"):
+            blocks["mlp"]["w3"] = dense(d, ff)
     params = {
         "embed": _normal(gen, (cfg.padded_vocab, d), 0.02, dtype, dev),
-        "blocks": {"attn_norm": ones(), "attn": attn, "mlp_norm": ones(),
-                   "mlp": mlp_p},
+        "blocks": blocks,
         "final_norm": {"w": torch.ones((d,), dtype=dtype, device=dev)},
     }
     if not cfg.tie_embeddings:
@@ -102,7 +110,7 @@ def init_cache(cfg, batch, max_len, policy=None, dtype=torch.bfloat16,
     global block pool [L, kv_blocks, block_size, KV, hd] addressed through
     `block_tables` [batch, MB] whose unallocated entries hold the sentinel
     kv_blocks (read as zeros, never written)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if kv_blocks is not None and kv_block_size is None:
         raise ValueError("kv_blocks requires kv_block_size (a pool size "
                          "only makes sense for the paged layout)")
@@ -173,7 +181,7 @@ def decode_step(cfg, params, cache, tokens,
     its S tokens are real (n_valid = 0 leaves the row untouched). KV is
     written in place; the returned cache carries the new lengths.
     `last_only` keeps each row's last valid position before the lm_head."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][tokens]
     b, s = x.shape[0], x.shape[1]
     dev = x.device
@@ -197,8 +205,11 @@ def decode_step(cfg, params, cache, tokens,
             lengths=lengths, n_valid=n_valid, block_tables=block_tables,
             plan=plan)
         x = x + h
-        x = x + mlp(bp["mlp"], rmsnorm(x, bp["mlp_norm"]["w"]), cfg.act,
-                    policy)
+        xin = rmsnorm(x, bp["mlp_norm"]["w"])
+        if cfg.family == "moe":
+            x = x + moe_ffn(bp["moe"], xin, cfg, policy, dropless=True)
+        else:
+            x = x + mlp(bp["mlp"], xin, cfg.act, policy)
     x = rmsnorm(x, params["final_norm"]["w"])
     if last_only:
         idx = torch.clamp(n_valid - 1, 0, s - 1).long()

@@ -7,15 +7,29 @@ only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances: the GEMM is bit-equal with and without its AF epilogue (an
-exact int32 product, then the same f32 operations in the same order);
+exact int32 product, then the same f32 operations in the same order),
+and so is its expert-batched entry against the loop of single launches;
 the attention output is bf16 and its reductions run in another order
-than the plain einsums, so it is held within 1% of the output's range."""
+than the plain einsums, so it is held within 1% of the output's range;
+the CORDIC AF and the CORDIC softmax are bit-equal (the same f32
+operations, the softmax's row sum in the same fixed order); a reduced
+MoE layer through the kernels is bit-equal to the plain backend."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.activation import softmax_lv_stages
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.qtensor import quantize_params
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.cordic_af.cordic_af import (KERNEL_AFS, cordic_af,
+                                                     cordic_af_plain,
+                                                     cordic_af_reference)
+from repro_torch.kernels.cordic_softmax.cordic_softmax import (
+    cordic_softmax, cordic_softmax_plain, cordic_softmax_reference)
 from repro_torch.kernels.fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
+                                                   fxp_gemm_fused_batched,
                                                    fxp_gemm_fused_plain)
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_float, paged_attention_float_plain, scores_in_scratch)
@@ -117,3 +131,94 @@ def test_unported_paths_raise_on_cuda(cuda):
     w = torch.zeros((16, 8), dtype=torch.int16, device=cuda)
     with pytest.raises(NotImplementedError, match="queue 2, item 7"):
         fxp_gemm_fused(x, w, torch.ones(8, device=cuda))
+
+
+@pytest.mark.parametrize("e,m,k,n", [(5, 3, 256, 130), (4, 24, 1030, 384),
+                                     (3, 40, 96, 64)])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_batched_gemm_kernel_bit_equal_to_single_launches(cuda, e, m, k, n,
+                                                          af):
+    """One launch for all experts; expert 1's queue is empty and every
+    other queue is half filled (zero rows), as a dropless MoE bank has."""
+    rng = np.random.default_rng(e * 100 + m)
+    x = rng.integers(-127, 128, (e, m, k), dtype=np.int8)
+    x[:, (m + 1) // 2:] = 0
+    x[1] = 0
+    x = torch.from_numpy(x).to(cuda)
+    w = torch.from_numpy(rng.integers(-127, 128, (e, k, n),
+                                      dtype=np.int8)).to(cuda)
+    scale = torch.from_numpy((rng.random((e, 1, n)) * 1e-3
+                              ).astype(np.float32)).to(cuda)
+    before = fxp_gemm_fused.launches
+    got = fxp_gemm_fused_batched(x, w, scale, af=af)
+    assert fxp_gemm_fused.launches == before + 1
+    for i in range(e):
+        assert torch.equal(got[i], fxp_gemm_fused(x[i], w[i], scale[i],
+                                                  af=af))
+        assert torch.equal(got[i], fxp_gemm_fused_plain(x[i], w[i], scale[i],
+                                                        af=af))
+
+
+@pytest.mark.parametrize("shape", [(3, 1000), (7, 333), (1, 64, 24, 1408)])
+@pytest.mark.parametrize("af", KERNEL_AFS)
+def test_cordic_af_kernel_bit_equal_to_plain(cuda, af, shape):
+    rng = np.random.default_rng(len(shape) * 10 + shape[-1])
+    x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)
+                         ).to(cuda)
+    before = cordic_af.launches
+    got = cordic_af(x, af)
+    assert cordic_af.launches == before + 1
+    assert torch.equal(got, cordic_af_plain(x, af, 4, 5))
+    # an unaligned view takes the scalar loop
+    flat = x.reshape(-1)[1:]
+    assert torch.equal(cordic_af(flat, af), cordic_af_plain(flat, af, 4, 5))
+    # the op: FxP8 snaps in and out around the kernel, bf16 in and out
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(cordic_af(xb, af, precision="fxp8"),
+                       cordic_af_reference(xb, af, precision="fxp8"))
+
+
+@pytest.mark.parametrize("m,n", [(4, 64), (16, 64), (5, 8), (9, 300),
+                                 (8, 4096)])
+def test_cordic_softmax_kernel_bit_equal_to_plain(cuda, m, n):
+    rng = np.random.default_rng(m * n)
+    x = torch.from_numpy((rng.normal(size=(m, n)) * 2).astype(np.float32)
+                         ).to(cuda)
+    lv = softmax_lv_stages(n, "fxp8")
+    before = cordic_softmax.launches
+    got = cordic_softmax(x, hr_stages=4, lv_stages=lv)
+    assert cordic_softmax.launches == before + 1
+    assert torch.equal(got, cordic_softmax_plain(x, 4, lv))
+    assert torch.equal(cordic_softmax(x, precision="fxp8"),
+                       cordic_softmax_reference(x, precision="fxp8"))
+
+
+def test_moe_layer_kernels_bit_equal_to_plain_backend(cuda):
+    """A reduced DeepSeekMoE block's FFN (2 decode tokens and a prefill
+    row): the kernels backend launches one softmax, two AFs and six GEMMs
+    (three expert banks, three shared) and gives the plain backend's bits."""
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_ffn
+    cfg = get_config("deepseek_moe_16b").reduced()
+    params = quantize_params(M.init_params(cfg, 0, device=cuda), "fxp8")
+    bp = M.layer_params(params["blocks"], 0)["moe"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for shape in ((2, 1), (1, 9)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        before = (fxp_gemm_fused.launches, cordic_af.launches,
+                  cordic_softmax.launches)
+        got = moe_ffn(bp, x, cfg, PrecisionPolicy.flexpe(8, backend="kernels"),
+                      dropless=True)
+        after = (fxp_gemm_fused.launches, cordic_af.launches,
+                 cordic_softmax.launches)
+        assert tuple(b - a for a, b in zip(before, after)) == (6, 2, 1)
+        want = moe_ffn(bp, x, cfg, PrecisionPolicy.flexpe(8), dropless=True)
+        assert torch.equal(got, want)
+    # the bank GEMM alone, through dispatch on both backends
+    xe = torch.randn((1, cfg.n_experts, 4, cfg.d_model), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    pol = PrecisionPolicy.flexpe(8)
+    assert torch.equal(
+        dispatch.expert_matmul(xe, bp["w1"], pol, backend="kernels"),
+        dispatch.expert_matmul(xe, bp["w1"], pol, backend="reference"))

@@ -1,6 +1,5 @@
-"""PyTorch port, the two kernels of the serving path against the JAX
-reference package's Pallas kernels (interpret mode, CPU), plus the
-on-card checks of the CUDA kernels against their plain versions.
+"""PyTorch port, the kernels of the serving path against the JAX
+reference package's Pallas kernels (interpret mode, CPU).
 
   * fxp_gemm_fused: the port's plain version vs fxp_gemm_fused_pallas on
     the same codes and scale — bit-exact without an AF (an exact int32
@@ -14,6 +13,20 @@ on-card checks of the CUDA kernels against their plain versions.
     two rows and an idle row. Tolerance: 1 bf16 ulp of the output (the
     einsum reductions run in another order than XLA's), widened by the LV
     divide's 2^-lv resolution under CORDIC.
+  * cordic_af: the port's op (fake-quant in f32, the plain AF, fake-quant
+    out) bit-equal to the reference's `flex_af` on f32 inputs, for every
+    kernel AF at precision None and FxP8, and to the reference's jitted
+    `cordic_af` op at precision None. At FxP8 the jitted op differs by up
+    to an f32 ulp of the output: XLA rewrites the scale's `amax / qmax`
+    into `amax * (1 / qmax)` under jit (ROADMAP.md queue 3); the port
+    keeps the divide of the eager reference.
+  * cordic_softmax: the port's op against the reference's, at 64, 300 and
+    4096 columns. The row sum runs in the kernel's fixed order, the
+    reference's in XLA's: a sum one ulp apart can move a probability by
+    one LV step (2^-lv) and, at FxP8, one step of the output grid. That
+    is the stated tolerance; these inputs agree bit for bit.
+  * expert_matmul: both port backends bit-equal to the reference's
+    per-expert loop on a quantize-once bank, empty expert queues included.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by `tests/test_torch_cuda.py` and `chip_smoke.py`."""
@@ -27,15 +40,24 @@ from repro.core.fxp import FORMATS as JFORMATS
 from repro.core.fxp import quantize as jquantize
 from repro.core.qtensor import quantize_tensor as jquantize_tensor
 from repro.kernels import dispatch as jdispatch
+from repro.core.activation import flex_af as jflex_af
+from repro.core.activation import softmax_lv_stages as jsoftmax_lv_stages
+from repro.kernels.cordic_af.ops import cordic_af as jcordic_af
+from repro.kernels.cordic_softmax.ops import cordic_softmax as jcordic_softmax
 from repro.kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused_pallas
 from repro.kernels.paged_attention import ops as jpa_ops
+from repro_torch.convert import from_numpy_tree
 from repro_torch.core.activation import softmax_lv_stages
 from repro_torch.core.precision import PrecisionPolicy as TPolicy
 from repro_torch.core.precision import (QuantizedActivation, qmatmul,
                                         quantize_activation)
 from repro_torch.core.qtensor import quantize_tensor as tquantize_tensor
 from repro_torch.kernels import dispatch as tdispatch
-from repro_torch.kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused
+from repro_torch.kernels.cordic_af.cordic_af import KERNEL_AFS, cordic_af
+from repro_torch.kernels.cordic_softmax.cordic_softmax import (
+    cordic_softmax, warp_row_sum)
+from repro_torch.kernels.fxp_gemm.fxp_gemm import (fxp_gemm_fused,
+                                                   fxp_gemm_fused_batched)
 
 AFS = [None, "silu", "sigmoid", "tanh", "gelu", "exp", "relu"]
 
@@ -197,3 +219,153 @@ def test_paged_attention_reference_backend_is_plain():
     with pytest.raises(NotImplementedError, match="queue 2, item 5"):
         tdispatch.paged_attention(*args, pol, "kernels",
                                   **dict(kw, int_attention=True))
+
+
+# ---------------------------------------------------------------------------
+# cordic_af and cordic_softmax
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def flush_denormals():
+    # XLA's CPU backend flushes f32 denormals; torch's does not unless
+    # asked. Per-thread state: switched back off after the test.
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+
+
+@pytest.mark.parametrize("precision", [None, "fxp8"])
+@pytest.mark.parametrize("af", KERNEL_AFS)
+def test_cordic_af_bit_equal_to_reference(af, precision, flush_denormals):
+    x = (np.random.default_rng(5).normal(size=(16, 200)) * 3
+         ).astype(np.float32)
+    got = cordic_af(torch.from_numpy(x), af, precision=precision).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jflex_af(jnp.asarray(x), af, precision=precision)))
+    want = np.asarray(jcordic_af(jnp.asarray(x), af, precision=precision,
+                                 interpret=True))
+    if precision is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=np.spacing(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernels"])
+def test_policy_act_snaps_in_f32_on_both_backends(backend):
+    """A bf16 activation: both port backends compute the kernel op's
+    contract, `flex_af` on the f32 values. The reference's plain backend
+    applies `flex_af` to the bf16 values, which snaps on the bf16 grid
+    and gives other codes (ROADMAP.md queue 3)."""
+    x = jnp.asarray(np.random.default_rng(6).normal(size=(64, 256)) * 3
+                    ).astype(jnp.bfloat16)
+    want = jflex_af(x.astype(jnp.float32), "silu",
+                    precision="fxp8").astype(jnp.bfloat16)
+    got = TPolicy.flexpe(8, backend=backend).act(_t(x), "silu")
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    bf16_grid = jflex_af(x, "silu", precision="fxp8")
+    assert (np.asarray(bf16_grid.astype(jnp.float32)) != want).any()
+
+
+@pytest.mark.parametrize("precision", [None, "fxp8"])
+@pytest.mark.parametrize("n", [64, 300, 4096])
+def test_cordic_softmax_matches_reference(n, precision, flush_denormals):
+    x = (np.random.default_rng(n).normal(size=(12, n)) * 2
+         ).astype(np.float32)
+    got = cordic_softmax(torch.from_numpy(x), precision=precision).numpy()
+    want = np.asarray(jcordic_softmax(jnp.asarray(x), precision=precision,
+                                      interpret=True))
+    lv = jsoftmax_lv_stages(n, precision)
+    assert lv == softmax_lv_stages(n, precision)
+    tol = 2.0 ** -(lv - 1)
+    if precision is not None:
+        tol += np.abs(want).max() / JFORMATS[precision].qmax
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=n * tol + 0.05)
+
+
+def test_softmax_row_sum_order():
+    """`warp_row_sum` adds in the kernel's order: 32 lanes each summing
+    columns l, l+32, ... in turn from 0, then the xor butterfly."""
+    rng = np.random.default_rng(7)
+    e = rng.random((3, 100)).astype(np.float32) * rng.choice(
+        [1e-3, 1.0, 1e3], size=(3, 100)).astype(np.float32)
+    want = np.empty((3,), np.float32)
+    for r in range(3):
+        lanes = [np.float32(0.0)] * 32
+        for j in range(100):
+            lanes[j % 32] = np.float32(lanes[j % 32] + e[r, j])
+        for off in (16, 8, 4, 2, 1):
+            lanes = [np.float32(lanes[i] + lanes[i ^ off]) for i in range(32)]
+        assert len(set(lanes)) == 1
+        want[r] = lanes[0]
+    got = warp_row_sum(torch.from_numpy(e))[:, 0].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernels"])
+def test_policy_softmax_routes(backend):
+    """A CORDIC policy's softmax over the last axis: the kernel op on the
+    kernels backend, `flex_af` with row-length LV stages otherwise; the
+    same probabilities here. An exact policy takes the exact softmax."""
+    x = torch.from_numpy((np.random.default_rng(8).normal(size=(2, 5, 64))
+                          * 2).astype(np.float32))
+    want = jnp.asarray(x.numpy())
+    want = JPolicy.flexpe(8).softmax(want, axis=-1)
+    got = TPolicy.flexpe(8, backend=backend).softmax(x, axis=-1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    exact = TPolicy.flexpe(8, af_impl="exact", backend=backend)
+    torch.testing.assert_close(exact.softmax(x), torch.softmax(x, -1))
+
+
+# ---------------------------------------------------------------------------
+# MoE expert banks
+# ---------------------------------------------------------------------------
+
+def _bank(k, n, e=6, seed=9):
+    w = (np.random.default_rng(seed).normal(size=(e, k, n)) * 0.1
+         ).astype(np.float32)
+    jw = jquantize_tensor(jnp.asarray(w).astype(jnp.bfloat16), "fxp8")
+    tw = from_numpy_tree({"data": np.asarray(jw.data),
+                          "scale": np.asarray(jw.scale), "fmt": jw.fmt_name,
+                          "n": jw.n, "packed": jw.packed})
+    return jw, tw
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernels"])
+@pytest.mark.parametrize("k,n", [(64, 40), (40, 64)])
+def test_expert_matmul_bit_equal_to_reference(backend, k, n):
+    """x [G, E, C, K] with expert 2's queue empty and half of every other
+    queue unfilled (zero rows), as a dropless decode batch leaves them."""
+    jw, tw = _bank(k, n)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(2, 6, 5, k)).astype(np.float32)
+    x[:, :, 3:] = 0.0
+    x[:, 2] = 0.0
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    want = jdispatch.expert_matmul(jx, jw, JPolicy.flexpe(8),
+                                   backend="reference")
+    before = fxp_gemm_fused.launches
+    got = tdispatch.expert_matmul(_t(jx), tw,
+                                  TPolicy.flexpe(8, backend=backend),
+                                  backend=backend)
+    assert fxp_gemm_fused.launches == before     # CPU: no launch
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 6, 5, n)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_batched_gemm_plain_is_the_per_expert_loop():
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-127, 128, (4, 7, 96), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (4, 96, 33), dtype=np.int8))
+    scale = torch.from_numpy((rng.random((4, 1, 33)) * 1e-3
+                              ).astype(np.float32))
+    got = fxp_gemm_fused_batched(x, w, scale, af="silu")
+    for e in range(4):
+        assert torch.equal(got[e], fxp_gemm_fused(x[e], w[e], scale[e],
+                                                  af="silu"))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fxp_gemm_fused_batched(x, w[:3], scale)

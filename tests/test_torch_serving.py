@@ -1,9 +1,16 @@
 """PyTorch port, serving: the port's `ServingEngine` against the JAX
 reference's engine with the same layout and flags (greedy, reduced
-Qwen2.5-14B under flexpe(8), quantize-once weights, 2 slots, 3 requests
-of mixed length), the port's own layout and loop-mode invariants, the
-reference's mock-executor scheduler tests run against the port's copied
-scheduler, and the port's isolation from JAX (CPU)."""
+Qwen2.5-14B and reduced DeepSeekMoE-16B under flexpe(8), quantize-once
+weights, 2 slots, 3 requests of mixed length), the port's own layout and
+loop-mode invariants, the serve CLI, the reference's mock-executor
+scheduler tests run against the port's copied scheduler, and the port's
+isolation from JAX (CPU).
+
+The MoE reference engine runs on its Pallas backend (interpret mode),
+whose CORDIC activation snaps in f32 as the port's does on both backends,
+and eagerly (`jax.disable_jit`): compiled, XLA rewrites some of its float
+arithmetic and the MoE routing carries the difference into other tokens
+(tests/test_torch_moe.py, ROADMAP.md queue 3)."""
 import ast
 import subprocess
 import sys
@@ -121,6 +128,58 @@ def test_engine_layouts_and_loop_modes_agree(model, reference_tokens,
     if layout == "paged":
         kw["kv_block_size"] = 4
     assert _port_tokens(model, **kw) == reference_tokens
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    cfg = get_config("deepseek_moe_16b").reduced()
+    jparams = jquantize_params(JM.init_params(cfg, jax.random.PRNGKey(0)),
+                               "fxp8")
+    return cfg, jparams, from_numpy_tree(numpy_tree(jparams))
+
+
+@pytest.fixture(scope="module")
+def moe_reference_tokens(moe_model):
+    """The reference engine, Pallas backend in interpret mode, paged
+    (block 4), sync loop, eager."""
+    cfg, jparams, _ = moe_model
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(JExecutor, "flush", _race_free_flush(JExecutor.flush))
+        eng = JEngine(cfg, jparams,
+                      policy=JPolicy.flexpe(8, backend="pallas-interpret"),
+                      kv_block_size=4, **ENGINE_KW)
+        done = eng.run([JRequest(prompt=p, max_new_tokens=GEN, id=i)
+                        for i, p in enumerate(_prompts(cfg))])
+    return [f.tokens for f in done]
+
+
+@pytest.mark.parametrize("backend", ["reference", "kernels"])
+def test_moe_engine_matches_reference_engine(moe_model, moe_reference_tokens,
+                                             backend):
+    assert (_port_tokens(moe_model, backend, kv_block_size=4)
+            == moe_reference_tokens)
+
+
+def test_moe_engine_layouts_and_loop_modes_agree(moe_model,
+                                                 moe_reference_tokens):
+    """The MoE family through the contiguous cache and the overlap loop:
+    the same tokens."""
+    assert (_port_tokens(moe_model, overlap=True)
+            == moe_reference_tokens)
+
+
+def test_serve_cli_moe_reports_every_kernel(capsys):
+    from repro_torch.launch import serve as serve_cli
+    finished = serve_cli.main([
+        "--arch", "deepseek_moe_16b", "--reduced", "--device", "cpu",
+        "--kv-block-size", "4", "--requests", "3", "--slots", "2",
+        "--prompt-len", "8", "--gen", "3", "--prefill-chunk", "4"])
+    out = capsys.readouterr().out
+    assert len(finished) == 3 and all(len(o.tokens) == 3 for o in finished)
+    # CPU tensors run the plain versions: no kernel launches
+    assert ("kernel launches: fxp_gemm_fused 0, paged_attention_float 0, "
+            "cordic_af 0, cordic_softmax 0") in out
+    assert "arch deepseek-moe-16b-smoke" in out
 
 
 def test_engine_events_stream_and_abort(model):
