@@ -7,7 +7,7 @@ its sibling for the MoE expert banks. The policy's `backend` field
 ('reference' or 'kernels', see `core.backend`) picks the implementation;
 weights may be float tensors or quantize-once `QuantizedTensor`s on
 either backend. `PrecisionPolicy.act` and `.softmax` are the activation
-and softmax ops of the MoE family (and of integer attention, later).
+and softmax ops of the MoE family and of integer attention.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ class PrecisionPolicy:
     af_impl: 'cordic' (paper datapath) or 'exact'.
     attn_softmax: 'cordic' runs attention's exp and divide on the CORDIC
       datapath; 'exact' uses exp and a true divide.
-    int_attention: decode attention on integer KV codes (not ported yet).
+    int_attention: decode attention on integer KV codes.
     backend: 'reference' or 'kernels' (see `core.backend`).
     """
     name: str = "bf16"

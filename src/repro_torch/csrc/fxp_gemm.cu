@@ -39,9 +39,24 @@
 //    4 tokens route to at most 24 of 64 experts: the unfilled queue slots
 //    cost no products, and an expert no token routes to costs no weight
 //    bytes.
+//  * Packed FxP4 weights (a third instantiation, so the int8 entries
+//    compile as before): B holds two codes per byte, byte j of a row's
+//    word holding elements 2j (low nibble) and 2j+1 (high), the lane order
+//    of core.simd.pack. A lane's 32-bit load then carries 8 columns of one
+//    k row; the nibbles are sign-extended in registers to two int8x4 words
+//    (even and odd columns), each transposed and fed to __dp4a as above, so
+//    a warp covers 256 columns and B moves half the int8 bytes. The H100
+//    has no int4 tensor-core rate: unpacking before the product is the
+//    route, as the TPU kernel's _unpack_nibbles is.
+//
+// Raw code GEMMs (src/repro/kernels/fxp_gemm/fxp_gemm.py, fxp_gemm_pallas
+// and fxp4_gemm_packed_pallas) are the same walk without the epilogue:
+// the int32 sums are written as they are. Codes wider than 8 bits take a
+// plain tiled int32 multiply-add (gemm_codes_wide_kernel); as in the
+// reference, the caller owns the overflow-free bound K * qmax^2 < 2^31.
 // Not yet: wgmma / mma.sync tensor cores and TMA (they need a k-major
-// weight layout or an in-shared-memory transpose), packed FxP4 weights and
-// >8-bit codes.
+// weight layout or an in-shared-memory transpose), and the fused epilogue
+// for >8-bit codes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,19 +67,49 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlockN = 128;       // 32 lanes x 4 columns
+constexpr int kBlockN = 128;       // int8 weights: 32 lanes x 4 columns
 constexpr int kMaxKSplit = 1024;   // K rows per block (A slice in smem)
 
-template <int MT, bool kExperts>
+// what B holds, and how the grid's z axis is read
+constexpr int kDense = 0;          // int8 codes [K, N]
+constexpr int kExpertBank = 1;     // int8 codes [E, K, N], z = (expert, tile)
+constexpr int kPackedFxP4 = 2;     // nibble bytes [K, ldb], N <= 2 * ldb
+
+// 4x4 byte transpose: word j of `r` holds four columns of row j; column
+// c's result word holds rows 0..3 of column c
+__device__ __forceinline__ void transpose4(const unsigned (&r)[4],
+                                           int (&col)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
+  const unsigned t1 = __byte_perm(r[0], r[1], 0x7362);
+  const unsigned t2 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = static_cast<int>(__byte_perm(t0, t2, 0x5410));
+  col[1] = static_cast<int>(__byte_perm(t0, t2, 0x7632));
+  col[2] = static_cast<int>(__byte_perm(t1, t3, 0x5410));
+  col[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));
+}
+
+// four nibbles (bits 0-3 of each byte of `w`) sign-extended to four int8
+// bytes: (v ^ 8) - 8 per byte maps 0..7 to 0..7 and 8..15 to -8..-1
+__device__ __forceinline__ unsigned sext_nibbles(unsigned w) {
+  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+template <int MT, int kMode, bool kRaw>
 __global__ void __launch_bounds__(kThreads)
 fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
                       const int8_t* __restrict__ B,
                       const float* __restrict__ scale,
-                      float* __restrict__ out, int* __restrict__ ws,
+                      void* __restrict__ out_, int* __restrict__ ws,
                       unsigned* __restrict__ counters, int M, int K, int N,
-                      int kps, int vec, int af, int lv_n, CordicParams cp) {
+                      int ldb, int kps, int vec, int af, int lv_n,
+                      CordicParams cp) {
+  constexpr bool kExperts = kMode == kExpertBank;
+  constexpr bool kPacked = kMode == kPackedFxP4;
+  constexpr int kBN = kPacked ? 2 * kBlockN : kBlockN;   // block columns
+  constexpr int kC = kBN / 32;                            // lane columns
   __shared__ int a_s[MT][kMaxKSplit / 4];
-  __shared__ int tile[MT][kBlockN];
+  __shared__ int tile[MT][kBN];
   __shared__ int is_last;
   __shared__ unsigned live;                  // bit m: row m0+m has a code
 
@@ -76,11 +121,11 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     A += static_cast<size_t>(expert) * M * K;
     B += static_cast<size_t>(expert) * K * N;
     scale += static_cast<size_t>(expert) * N;
-    out += static_cast<size_t>(expert) * M * N;
+    out_ = static_cast<float*>(out_) + static_cast<size_t>(expert) * M * N;
     ws += static_cast<size_t>(expert) * M * N;
     m0 = (blockIdx.z - expert * m_tiles) * MT;
   }
-  const int n0 = blockIdx.x * kBlockN;
+  const int n0 = blockIdx.x * kBN;
   const int k0 = blockIdx.y * kps;
   const int k1 = min(K, k0 + kps);
   const int kw = (k1 - k0 + 3) / 4;          // packed words of this slice
@@ -120,8 +165,8 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     a_s[m][w] = static_cast<int>(packed);
     if (kExperts && packed) rows |= 1u << m;
   }
-  for (int i = tid; i < MT * kBlockN; i += kThreads) {
-    tile[i / kBlockN][i % kBlockN] = 0;
+  for (int i = tid; i < MT * kBN; i += kThreads) {
+    tile[i / kBN][i % kBN] = 0;
   }
   // expert banks: rows of zero codes contribute exact zeros, so skip their
   // products, and the B loads of a slice that has no other rows
@@ -134,14 +179,14 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   if constexpr (kExperts) live_rows = live;
   const int g0 = live_rows ? warp : kw;
 
-  int acc[MT][4];
+  int acc[MT][kC];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0;
+    for (int c = 0; c < kC; ++c) acc[m][c] = 0;
   }
 
-  const int n = n0 + 4 * lane;
+  const int n = n0 + kC * lane;
   for (int g = g0; g < kw; g += kWarps) {
     const int kb = k0 + 4 * g;
     unsigned r[4];
@@ -150,35 +195,66 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
       const int k = kb + j;
       unsigned word = 0;
       if (k < k1 && n < N) {
-        const int8_t* row = B + static_cast<size_t>(k) * N;
-        if (vec) {
-          word = __ldg(reinterpret_cast<const unsigned*>(row + n));
+        if constexpr (kPacked) {
+          // columns n..n+7 are bytes n/2..n/2+3 of the row
+          const int8_t* row = B + static_cast<size_t>(k) * ldb + n / 2;
+          if (vec) {
+            word = __ldg(reinterpret_cast<const unsigned*>(row));
+          } else {
+            for (int c = 0; c < 4; ++c) {
+              if (n / 2 + c < ldb) {
+                word |= static_cast<unsigned>(static_cast<uint8_t>(row[c]))
+                        << (8 * c);
+              }
+            }
+          }
         } else {
-          for (int c = 0; c < 4; ++c) {
-            if (n + c < N) {
-              word |= static_cast<unsigned>(static_cast<uint8_t>(row[n + c]))
-                      << (8 * c);
+          const int8_t* row = B + static_cast<size_t>(k) * N;
+          if (vec) {
+            word = __ldg(reinterpret_cast<const unsigned*>(row + n));
+          } else {
+            for (int c = 0; c < 4; ++c) {
+              if (n + c < N) {
+                word |= static_cast<unsigned>(
+                            static_cast<uint8_t>(row[n + c]))
+                        << (8 * c);
+              }
             }
           }
         }
       }
       r[j] = word;
     }
-    // 4x4 byte transpose: column c's word holds rows kb..kb+3 of column n+c
-    const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
-    const unsigned t1 = __byte_perm(r[0], r[1], 0x7362);
-    const unsigned t2 = __byte_perm(r[2], r[3], 0x5140);
-    const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
-    const int col[4] = {static_cast<int>(__byte_perm(t0, t2, 0x5410)),
-                        static_cast<int>(__byte_perm(t0, t2, 0x7632)),
-                        static_cast<int>(__byte_perm(t1, t3, 0x5410)),
-                        static_cast<int>(__byte_perm(t1, t3, 0x7632))};
+    // col[c]: rows kb..kb+3 of lane column c, as four int8 codes
+    int col[kC];
+    if constexpr (kPacked) {
+      // low nibbles hold the even columns n+2c, high nibbles the odd ones
+      unsigned lo[4], hi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo[j] = sext_nibbles(r[j]);
+        hi[j] = sext_nibbles(r[j] >> 4);
+      }
+      int even[4], odd[4];
+      transpose4(lo, even);
+      transpose4(hi, odd);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        col[2 * c] = even[c];
+        col[2 * c + 1] = odd[c];
+      }
+    } else {
+      int four[4];
+      transpose4(r, four);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) col[c] = four[c];
+    }
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (!kExperts || (live_rows & (1u << m))) {    // uniform block-wide
         const int a = a_s[m][g];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
+        for (int c = 0; c < kC; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
       }
     }
   }
@@ -187,8 +263,8 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (acc[m][c] != 0) atomicAdd(&tile[m][4 * lane + c], acc[m][c]);
+    for (int c = 0; c < kC; ++c) {
+      if (acc[m][c] != 0) atomicAdd(&tile[m][kC * lane + c], acc[m][c]);
     }
   }
   __syncthreads();
@@ -197,9 +273,9 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   if (split) {
     // add this block's partial tile into the workspace, then let the last
     // block of the tile apply the epilogue
-    for (int i = tid; i < MT * kBlockN; i += kThreads) {
-      const int m = i / kBlockN;
-      const int c = i % kBlockN;
+    for (int i = tid; i < MT * kBN; i += kThreads) {
+      const int m = i / kBN;
+      const int c = i % kBN;
       if (m0 + m < M && n0 + c < N && tile[m][c] != 0) {
         atomicAdd(&ws[static_cast<size_t>(m0 + m) * N + n0 + c], tile[m][c]);
       }
@@ -216,57 +292,123 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     __threadfence();
   }
 
-  for (int i = tid; i < MT * kBlockN; i += kThreads) {
-    const int m = i / kBlockN;
-    const int c = i % kBlockN;
+  for (int i = tid; i < MT * kBN; i += kThreads) {
+    const int m = i / kBN;
+    const int c = i % kBN;
     const int row = m0 + m;
     const int cn = n0 + c;
     if (row < M && cn < N) {
       const size_t o = static_cast<size_t>(row) * N + cn;
       const int total = split ? __ldcg(&ws[o]) : tile[m][c];
-      const float v = __fmul_rn(static_cast<float>(total), scale[cn]);
-      out[o] = apply_af(v, af, cp, lv_n);
+      if constexpr (kRaw) {
+        static_cast<int*>(out_)[o] = total;
+      } else {
+        const float v = __fmul_rn(static_cast<float>(total), scale[cn]);
+        static_cast<float*>(out_)[o] = apply_af(v, af, cp, lv_n);
+      }
     }
   }
 }
 
-template <int MT, bool kExperts>
+template <int MT, int kMode, bool kRaw>
 cudaError_t launch(const int8_t* a, const int8_t* b, const float* scale,
-                   float* out, int* ws, unsigned* counters, int E, int M,
-                   int K, int N, int kps, int vec, int af, int lv_n,
+                   void* out, int* ws, unsigned* counters, int E, int M,
+                   int K, int N, int ldb, int kps, int vec, int af, int lv_n,
                    const CordicParams& cp, cudaStream_t stream) {
+  constexpr int kBN = kMode == kPackedFxP4 ? 2 * kBlockN : kBlockN;
   const int splits = (K + kps - 1) / kps;
-  dim3 grid((N + kBlockN - 1) / kBlockN, splits, E * ((M + MT - 1) / MT));
-  fxp_gemm_fused_kernel<MT, kExperts><<<grid, kThreads, 0, stream>>>(
-      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
+  dim3 grid((N + kBN - 1) / kBN, splits, E * ((M + MT - 1) / MT));
+  fxp_gemm_fused_kernel<MT, kMode, kRaw><<<grid, kThreads, 0, stream>>>(
+      a, b, scale, out, ws, counters, M, K, N, ldb, kps, vec, af, lv_n, cp);
   return cudaGetLastError();
 }
 
-template <bool kExperts>
-int dispatch(const int8_t* a, const int8_t* b, const float* scale, float* out,
-             int* ws, unsigned* counters, int E, int M, int K, int N, int kps,
-             int vec, int af, int lv_n, const CordicParams* cp,
+// Row tiles of 4, 8 or 16 rows (8 at most for packed weights, whose lanes
+// hold twice the columns and so twice the accumulators).
+template <int kMode, bool kRaw>
+int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
+             int* ws, unsigned* counters, int E, int M, int K, int N, int ldb,
+             int kps, int vec, int af, int lv_n, const CordicParams* cp,
              void* stream) {
-  const int max_mt = 16;
+  const int max_mt = kMode == kPackedFxP4 ? 8 : 16;
   if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || kps <= 0 ||
       kps > kMaxKSplit || kps % 4 != 0 ||
+      (kMode == kPackedFxP4 && (ldb <= 0 || N > 2 * ldb)) ||
       static_cast<long long>(E) * ((M + max_mt - 1) / max_mt) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 4) {
-    return static_cast<int>(launch<4, kExperts>(
-        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
-        s));
+    return static_cast<int>(launch<4, kMode, kRaw>(
+        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
+        *cp, s));
   }
-  if (M <= 8) {
-    return static_cast<int>(launch<8, kExperts>(
-        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
-        s));
+  if constexpr (kMode == kPackedFxP4) {
+    return static_cast<int>(launch<8, kMode, kRaw>(
+        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
+        *cp, s));
+  } else {
+    if (M <= 8) {
+      return static_cast<int>(launch<8, kMode, kRaw>(
+          a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af,
+          lv_n, *cp, s));
+    }
+    return static_cast<int>(launch<16, kMode, kRaw>(
+        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
+        *cp, s));
   }
-  return static_cast<int>(launch<16, kExperts>(
-      a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp, s));
 }
+
+// Raw products of codes wider than 8 bits: a 32 x 32 output tile per
+// block, A and B staged in shared memory 32 k rows at a time, each thread
+// four rows of one column. Unsigned arithmetic wraps as the reference's
+// int32 dot does; inside the caller's bound nothing wraps.
+constexpr int kWideTile = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gemm_codes_wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                       int* __restrict__ out, int M, int K, int N) {
+  __shared__ int a_t[kWideTile][kWideTile + 1];     // [m][k]
+  __shared__ int b_t[kWideTile][kWideTile + 1];     // [k][n]
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int m0 = blockIdx.y * kWideTile;
+  const int n0 = blockIdx.x * kWideTile;
+  constexpr int kRows = kWideTile / kWarps;
+  unsigned acc[kRows] = {};
+  for (int k0 = 0; k0 < K; k0 += kWideTile) {
+    for (int i = ty; i < kWideTile; i += kWarps) {
+      const int m = m0 + i;
+      const int k = k0 + tx;
+      a_t[i][tx] = (m < M && k < K)
+          ? static_cast<int>(A[static_cast<size_t>(m) * K + k]) : 0;
+      const int kk = k0 + i;
+      const int nn = n0 + tx;
+      b_t[i][tx] = (kk < K && nn < N)
+          ? static_cast<int>(B[static_cast<size_t>(kk) * N + nn]) : 0;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kWideTile; ++kk) {
+      const unsigned bv = static_cast<unsigned>(b_t[kk][tx]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        acc[r] += static_cast<unsigned>(a_t[ty + kWarps * r][kk]) * bv;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int m = m0 + ty + kWarps * r;
+    if (m < M && n0 + tx < N) {
+      out[static_cast<size_t>(m) * N + n0 + tx] = static_cast<int>(acc[r]);
+    }
+  }
+}
+
+const CordicParams kNoCordic = {};
 
 }  // namespace
 
@@ -278,8 +420,8 @@ extern "C" int fxp_gemm_fused_batched(const int8_t* a, const int8_t* b,
                                       int N, int kps, int vec, int af,
                                       int lv_n, const CordicParams* cp,
                                       void* stream) {
-  return dispatch<true>(a, b, scale, out, ws, counters, E, M, K, N, kps, vec,
-                        af, lv_n, cp, stream);
+  return dispatch<kExpertBank, false>(a, b, scale, out, ws, counters, E, M, K,
+                                      N, N, kps, vec, af, lv_n, cp, stream);
 }
 
 extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
@@ -287,6 +429,53 @@ extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
                               unsigned* counters, int M, int K, int N, int kps,
                               int vec, int af, int lv_n,
                               const CordicParams* cp, void* stream) {
-  return dispatch<false>(a, b, scale, out, ws, counters, 1, M, K, N, kps, vec,
-                         af, lv_n, cp, stream);
+  return dispatch<kDense, false>(a, b, scale, out, ws, counters, 1, M, K, N,
+                                 N, kps, vec, af, lv_n, cp, stream);
+}
+
+// Packed FxP4 weights: b holds nibble bytes [K, ldb] (the int32 words of
+// core.simd.pack seen as bytes), N <= 2 * ldb output columns.
+extern "C" int fxp_gemm_fused_packed(const int8_t* a, const int8_t* b,
+                                     const float* scale, float* out, int* ws,
+                                     unsigned* counters, int M, int K, int N,
+                                     int ldb, int kps, int vec, int af,
+                                     int lv_n, const CordicParams* cp,
+                                     void* stream) {
+  return dispatch<kPackedFxP4, false>(a, b, scale, out, ws, counters, 1, M, K,
+                                      N, ldb, kps, vec, af, lv_n, cp, stream);
+}
+
+// Raw int32 products, no epilogue: int8 codes b [K, N], or with packed = 1
+// nibble bytes b [K, ldb].
+extern "C" int fxp_gemm_codes_int8(const int8_t* a, const int8_t* b, int* out,
+                                   int* ws, unsigned* counters, int M, int K,
+                                   int N, int ldb, int packed, int kps,
+                                   int vec, void* stream) {
+  return packed
+      ? dispatch<kPackedFxP4, true>(a, b, nullptr, out, ws, counters, 1, M, K,
+                                    N, ldb, kps, vec, 0, 0, &kNoCordic, stream)
+      : dispatch<kDense, true>(a, b, nullptr, out, ws, counters, 1, M, K, N,
+                               N, kps, vec, 0, 0, &kNoCordic, stream);
+}
+
+// Raw int32 products of int16 (elem_bytes 2) or int32 (4) codes.
+extern "C" int fxp_gemm_codes_wide(const void* a, const void* b, int* out,
+                                   int M, int K, int N, int elem_bytes,
+                                   void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || (elem_bytes != 2 && elem_bytes != 4) ||
+      (M + kWideTile - 1) / kWideTile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((N + kWideTile - 1) / kWideTile, (M + kWideTile - 1) / kWideTile);
+  if (elem_bytes == 2) {
+    gemm_codes_wide_kernel<int16_t><<<grid, kThreads, 0, s>>>(
+        static_cast<const int16_t*>(a), static_cast<const int16_t*>(b), out,
+        M, K, N);
+  } else {
+    gemm_codes_wide_kernel<int32_t><<<grid, kThreads, 0, s>>>(
+        static_cast<const int32_t*>(a), static_cast<const int32_t*>(b), out,
+        M, K, N);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

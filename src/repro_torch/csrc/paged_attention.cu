@@ -1,5 +1,6 @@
-// paged_attention_float — one-query GQA decode attention read straight off
-// the paged KV pool, written for Hopper (sm_90a).
+// paged_attention_float and paged_attention_int — one-query GQA decode
+// attention read straight off the paged KV pool, written for Hopper
+// (sm_90a). The integer body is described above its kernel below.
 //
 // Replaces: src/repro/kernels/paged_attention/paged_attention.py,
 // paged_attention_float_pallas (_float_body with _dequant_kernel for int8
@@ -338,6 +339,236 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+
+// paged_attention_int — fully integer decode attention on the int8 pool.
+//
+// Replaces: src/repro/kernels/paged_attention/paged_attention.py,
+// paged_attention_int_pallas (body _int_kernel). For one row b and one KV
+// head h, with q codes [g, hd] and their scales [g] quantized by the caller
+// (q / sqrt(hd), per head over hd):
+//   * s_int = q_codes . k_codes over hd with __dp4a (exact int32);
+//   * s = (float(s_int) * sq) * ks, the reference's order; positions above
+//     the query position or at/after the valid length are -1e30; sentinel
+//     table entries read zero codes and zero scales;
+//   * the exact softmax: row max, expf(s - max), row sum, IEEE divide;
+//   * pv = p * vs; per head, scale = max(max |pv|, 1e-12) / qmax and codes
+//     rint(pv / scale) clipped to [qmin, qmax] (a true division, as
+//     core.fxp.quantize divides);
+//   * o = sum over positions of pv codes x v codes (exact int32), times the
+//     scale, rounded to bf16.
+// The integer dots are exact in any order; only the softmax's sum order and
+// expf differ from the plain version, and a p.v code that flips with them
+// moves the output by one v step times the row scale.
+//
+// What bounds it: the int8 K and V codes and their scales, read once per
+// allocated position (~2 operations per byte): memory, and at small batch
+// how few blocks are in flight (B * KV). The design is the float body's:
+// one block per (row, KV head) shares each K/V row among the g query heads,
+// a thread per position for the scores (16-byte K loads, g __dp4a sums in
+// registers), the score row on chip (or in a global scratch row when too
+// wide), a warp per position for the AV sums with lanes over head dims.
+__global__ void __launch_bounds__(kThreads)
+paged_attention_int_kernel(const int8_t* __restrict__ q_codes,
+                           const float* __restrict__ q_scale,
+                           const int8_t* __restrict__ k_pool,
+                           const int8_t* __restrict__ v_pool,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ meta,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ scratch, int NB, int bs,
+                           int KV, int g, int hd, int MB, int qmax) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / KV;
+  const int h = blockIdx.x - b * KV;
+  const int S = MB * bs;
+  const int hw = hd / 4;                      // code words per head row
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  int* q_s = reinterpret_cast<int*>(smem);    // [g, hw] q code words
+  int* o_s = q_s + g * hw;                    // [kWarps, g, hd] AV sums
+  float* red = reinterpret_cast<float*>(o_s + kWarps * g * hd);
+  float* sq_s = red + kWarps * kMaxG;         // [kMaxG] q scales
+  float* m_s = sq_s + kMaxG;                  // [kMaxG] row max
+  float* den_s = m_s + kMaxG;                 // [kMaxG] row sum
+  float* spv_s = den_s + kMaxG;               // [kMaxG] max |pv|, then scale
+  float* s_s = scratch != nullptr
+      ? scratch + static_cast<size_t>(blockIdx.x) * g * S
+      : spv_s + kMaxG;                        // [g, S] scores, p, pv, codes
+
+  const int qpos = meta[b * 3 + 2];
+  const int kvv = meta[b * 3 + 1];
+  const int* tbl = tables + static_cast<size_t>(b) * MB;
+  const size_t head = static_cast<size_t>(b) * KV + h;
+  const int* qw = reinterpret_cast<const int*>(q_codes + head * g * hd);
+  for (int i = tid; i < g * hw; i += kThreads) q_s[i] = qw[i];
+  if (tid < g) sq_s[tid] = q_scale[head * g + tid];
+  __syncthreads();
+
+  // 1) scores: a thread per position, g __dp4a sums in registers; masked
+  //    positions are -1e30 whatever their dot, so they skip it
+  for (int p = tid; p < S; p += kThreads) {
+    int dot[kMaxG];
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) dot[gi] = 0;
+    const bool valid = p <= qpos && p < kvv;
+    const int blk = tbl[p / bs];
+    float ks = 0.f;
+    if (valid && blk < NB) {
+      const size_t pos = (static_cast<size_t>(blk) * bs + p % bs) * KV + h;
+      ks = k_scale[pos];
+      const int4* row = reinterpret_cast<const int4*>(k_pool + pos * hd);
+      for (int w4 = 0; w4 < hw / 4; ++w4) {
+        const int4 kv = row[w4];
+        const int words[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int gi = 0; gi < kMaxG; ++gi) {
+            if (gi < g) {
+              dot[gi] = __dp4a(words[i], q_s[gi * hw + 4 * w4 + i], dot[gi]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {
+        s_s[gi * S + p] = valid
+            ? __fmul_rn(__fmul_rn(static_cast<float>(dot[gi]), sq_s[gi]), ks)
+            : kMasked;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2) full-row max per head
+  float v[kMaxG];
+#pragma unroll
+  for (int gi = 0; gi < kMaxG; ++gi) v[gi] = kMasked;
+  for (int p = tid; p < S; p += kThreads) {
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) v[gi] = fmaxf(v[gi], s_s[gi * S + p]);
+    }
+  }
+  block_reduce<true>(v, g, red, m_s);
+
+  // 3) e = exp(s - max) in place, and the row sum
+#pragma unroll
+  for (int gi = 0; gi < kMaxG; ++gi) v[gi] = 0.f;
+  for (int p = tid; p < S; p += kThreads) {
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {
+        const float e = expf(__fsub_rn(s_s[gi * S + p], m_s[gi]));
+        s_s[gi * S + p] = e;
+        v[gi] = __fadd_rn(v[gi], e);
+      }
+    }
+  }
+  block_reduce<false>(v, g, red, den_s);
+
+  // 4) pv = (e / sum) * vs in place, and max |pv| per head (pv >= 0)
+#pragma unroll
+  for (int gi = 0; gi < kMaxG; ++gi) v[gi] = 0.f;
+  for (int p = tid; p < S; p += kThreads) {
+    const int blk = tbl[p / bs];
+    const float vs = blk < NB
+        ? v_scale[(static_cast<size_t>(blk) * bs + p % bs) * KV + h]
+        : 0.f;
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {
+        const float pv =
+            __fmul_rn(__fdiv_rn(s_s[gi * S + p], den_s[gi]), vs);
+        s_s[gi * S + p] = pv;
+        v[gi] = fmaxf(v[gi], pv);
+      }
+    }
+  }
+  block_reduce<true>(v, g, red, spv_s);
+  if (tid < g) {
+    spv_s[tid] = __fdiv_rn(fmaxf(spv_s[tid], 1e-12f),
+                           static_cast<float>(qmax));
+  }
+  __syncthreads();
+
+  // 5) requantize pv per head: codes rint(pv / scale), clipped
+  const float qmin = static_cast<float>(-qmax - 1);
+  for (int p = tid; p < S; p += kThreads) {
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {
+        const float c = rintf(__fdiv_rn(s_s[gi * S + p], spv_s[gi]));
+        s_s[gi * S + p] = fminf(fmaxf(c, qmin), static_cast<float>(qmax));
+      }
+    }
+  }
+  __syncthreads();
+
+  // 6) AV: a warp per position, lanes over 4-dim groups, exact int32 sums;
+  //    positions whose g codes are all zero, and sentinel blocks, add
+  //    nothing and are skipped
+  for (int d0 = 4 * lane; d0 < hd; d0 += 128) {
+    int acc[kMaxG][4];
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[gi][i] = 0;
+    }
+    for (int p = warp; p < S; p += kWarps) {
+      const int blk = tbl[p / bs];
+      if (blk >= NB) continue;
+      int code[kMaxG];
+      bool any = false;
+#pragma unroll
+      for (int gi = 0; gi < kMaxG; ++gi) {
+        code[gi] = gi < g ? static_cast<int>(s_s[gi * S + p]) : 0;
+        any |= code[gi] != 0;
+      }
+      if (!any) continue;
+      const size_t pos = (static_cast<size_t>(blk) * bs + p % bs) * KV + h;
+      const char4 w = *reinterpret_cast<const char4*>(v_pool + pos * hd + d0);
+      const int val[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int gi = 0; gi < kMaxG; ++gi) {
+        if (gi < g) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[gi][i] += code[gi] * val[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < kMaxG; ++gi) {
+      if (gi < g) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o_s[(warp * g + gi) * hd + d0 + i] = acc[gi][i];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const size_t out_base = head * g * hd;
+  for (int i = tid; i < g * hd; i += kThreads) {
+    int acc = o_s[i];
+    for (int w = 1; w < kWarps; ++w) acc += o_s[w * g * hd + i];
+    out[out_base + i] = __float2bfloat16_rn(
+        __fmul_rn(static_cast<float>(acc), spv_s[i / hd]));
+  }
+}
+
+size_t int_smem_bytes(int g, int hd, int S, bool with_scores) {
+  return (static_cast<size_t>(g) * hd / 4 + static_cast<size_t>(kWarps) * g * hd
+          + kWarps * kMaxG + 4 * kMaxG
+          + (with_scores ? static_cast<size_t>(g) * S : 0)) * 4;
+}
+
 }  // namespace
 
 // Shared-memory bytes the kernel needs with its score row on chip: the
@@ -369,4 +600,36 @@ extern "C" int paged_attention_float(const void* q, const void* k_pool,
                               meta, out, scratch, B, NB, bs, KV, g, hd, MB,
                               sm_scale, cordic, lv_n, *cp, s);
   return static_cast<int>(err);
+}
+
+// The integer body's shared-memory bytes with its score row on chip.
+extern "C" long long paged_attention_int_smem_bytes(int g, int hd, int S) {
+  return static_cast<long long>(int_smem_bytes(g, hd, S, true));
+}
+
+// q_codes [B, KV, g, hd] int8 and q_scale [B, KV, g] f32; int8 pools with
+// f32 per-position scales; out [B, KV * g, hd] bf16. hd must be a multiple
+// of 16 and every pool and q row 16-byte aligned.
+extern "C" int paged_attention_int(const int8_t* q_codes,
+                                   const float* q_scale,
+                                   const int8_t* k_pool, const int8_t* v_pool,
+                                   const float* k_scale, const float* v_scale,
+                                   const int* tables, const int* meta,
+                                   void* out, float* scratch, int B, int NB,
+                                   int bs, int KV, int g, int hd, int MB,
+                                   int qmax, void* stream) {
+  if (B <= 0 || KV <= 0 || g <= 0 || g > kMaxG || hd <= 0 || hd % 16 != 0 ||
+      bs <= 0 || MB <= 0 || qmax <= 0 || qmax > 127) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = int_smem_bytes(g, hd, MB * bs, scratch == nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_int_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paged_attention_int_kernel<<<B * KV, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      q_codes, q_scale, k_pool, v_pool, k_scale, v_scale, tables, meta,
+      static_cast<__nv_bfloat16*>(out), scratch, NB, bs, KV, g, hd, MB, qmax);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,7 @@ backend, with the same per-expert activation codes and scales.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -36,7 +37,9 @@ from .fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
                                 fxp_gemm_fused_batched, fxp_gemm_fused_plain)
 from .paged_attention.ops import paged_attention as _paged_attention
 from .paged_attention.paged_attention import (paged_attention_float,
-                                              paged_attention_float_plain)
+                                              paged_attention_float_plain,
+                                              paged_attention_int,
+                                              paged_attention_int_plain)
 
 __all__ = ["register", "lookup", "matmul", "expert_matmul", "act",
            "softmax", "paged_attention", "FUSED_AFS"]
@@ -125,18 +128,23 @@ def _matmul_kernels(x, w, policy, af=None):
                             w.shape[-1], False)
     xa = (x if isinstance(x, QuantizedActivation)
           else quantize_activation(x, w, policy))
-    if w.packed or not isinstance(xa, QuantizedActivation):
+    if not isinstance(xa, QuantizedActivation):
         raise NotImplementedError(
-            "the fxp_gemm kernel path takes int8 codes only; packed FxP4 "
-            "and >8-bit codes are ROADMAP.md queue 2, item 7")
+            "the fxp_gemm kernel path takes codes of <= 8 bits; the fused "
+            "path for >8-bit codes is ROADMAP.md queue 2, item 7")
     if w.ndim != 2:
         raise ValueError("kernel matmul wants a 2-D (per-layer) weight")
     scale = (xa.scale * w.scale).float().expand(1, w.n)
-    out = _fused_gemm(fxp_gemm_fused, xa.codes, w.data, scale, af, policy)
+    # packed FxP4: the int32 words seen as nibble bytes [K, 4 * words];
+    # byte j holds elements 2j (low nibble) and 2j+1 (high), the lane
+    # order of core.simd.pack
+    w_codes = w.data.view(torch.int8) if w.packed else w.data
+    out = _fused_gemm(fxp_gemm_fused, xa.codes, w_codes, scale, af, policy,
+                      packed=w.packed)
     return out.reshape(*xa.lead, w.n).to(xa.dtype)
 
 
-def _fused_gemm(gemm, codes, w_codes, scale, af, policy):
+def _fused_gemm(gemm, codes, w_codes, scale, af, policy, **kw):
     """`gemm` (the single or the batched kernel entry) with the AF fused
     into its epilogue on the CORDIC datapath; 'exact' AF policies apply
     the shared accumulator-AF contract as a post-op."""
@@ -144,7 +152,7 @@ def _fused_gemm(gemm, codes, w_codes, scale, af, policy):
                and (policy is None or policy.af_impl == "cordic"))
     hr, lv = default_stages(policy.af if policy is not None else None)
     out = gemm(codes, w_codes, scale, af=af if fuse_af else None,
-               hr_stages=hr, lv_stages=lv)
+               hr_stages=hr, lv_stages=lv, **kw)
     if fuse_af:
         if policy is not None and policy.af is not None:
             out = fake_quant(out, FORMATS[policy.af])
@@ -198,12 +206,15 @@ def _expert_matmul_kernels(x, w, policy, af=None):
     scale in one pass (a per-expert amax over [E, G*C, K], which is what
     each expert's own per-tensor amax gives: a max does not depend on
     order), the folded [E, 1, N] scales, then the batched GEMM kernel.
-    Float or packed banks and >8-bit formats take the per-expert loop."""
+    Float banks and >8-bit formats take the per-expert loop; packed FxP4
+    banks are not ported yet."""
     fmt_x = (FORMATS[policy.matmul if policy is not None
                      and policy.matmul is not None else w.fmt_name]
              if isinstance(w, QuantizedTensor) else None)
-    if (fmt_x is None or w.packed or w.fmt.bits > 8 or fmt_x.bits > 8
-            or w.ndim != 3):
+    if fmt_x is not None and w.packed:
+        raise NotImplementedError(
+            "packed FxP4 expert banks are ROADMAP.md queue 2, item 7")
+    if fmt_x is None or w.fmt.bits > 8 or fmt_x.bits > 8 or w.ndim != 3:
         return _expert_loop(_matmul_kernels, x, w, policy, af)
     xe, back = _by_expert(x, w.data.shape[0])
     codes, xs = quantize(xe.float(), fmt_x, axis=(1, 2))
@@ -257,19 +268,37 @@ def _softmax_kernels(x, policy):
 @register("paged_attention", "reference")
 def _paged_attention_reference(q, k_pool, v_pool, k_scale, v_scale,
                                block_tables, policy, **kw):
-    """Gathered-view plain version, on any device."""
-    return _paged_attention(q, k_pool, v_pool, k_scale, v_scale,
-                            block_tables, policy=policy,
-                            impl=paged_attention_float_plain, **kw)
+    """Gathered-view plain versions, on any device; integer attention
+    takes the policy's own softmax, as the reference's oracle does."""
+    softmax_fn = ((lambda s: policy.softmax(s, axis=-1))
+                  if policy is not None else None)
+    return _paged_attention(
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, policy=policy,
+        impl=paged_attention_float_plain,
+        int_impl=functools.partial(paged_attention_int_plain,
+                                   softmax_fn=softmax_fn), **kw)
 
 
 @register("paged_attention", "kernels")
 def _paged_attention_kernels(q, k_pool, v_pool, k_scale, v_scale,
                              block_tables, policy, **kw):
-    """The block-table-walking kernel (its plain version on the CPU)."""
+    """The block-table-walking kernels (their plain versions on the CPU).
+    Integer attention with a CORDIC softmax takes the gathered plain
+    composition, the route the reference's Pallas backend gives it
+    (src/repro/kernels/dispatch.py, `_paged_attention_pallas`): its integer
+    kernel computes the exact softmax only. On the card that composition's
+    softmax is still the CORDIC softmax kernel. (Under a CORDIC policy the
+    reference's integer attention is the mean of V over the valid
+    positions: ROADMAP.md queue 3.)"""
+    if (kw.get("int_attention") and kw.get("fmt") is not None
+            and policy is not None and policy.attn_softmax == "cordic"):
+        return _paged_attention_reference(q, k_pool, v_pool, k_scale,
+                                          v_scale, block_tables, policy,
+                                          **kw)
     return _paged_attention(q, k_pool, v_pool, k_scale, v_scale,
                             block_tables, policy=policy,
-                            impl=paged_attention_float, **kw)
+                            impl=paged_attention_float,
+                            int_impl=paged_attention_int, **kw)
 
 
 # ---------------------------------------------------------------------------

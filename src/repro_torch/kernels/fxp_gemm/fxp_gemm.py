@@ -12,9 +12,18 @@ the two agree bit for bit. `fxp_gemm_fused_batched` runs one such product
 per MoE expert ([E, M, K] @ [E, K, N]) in one launch of the same kernel;
 its plain version is the loop over experts.
 
+With `packed=True` the weight is packed FxP4: int8 bytes [K, NB] (the
+int32 words of `core.simd.pack` seen as bytes), byte j holding elements 2j
+(low nibble) and 2j+1 (high), sign-extended; N = scale.numel() <= 2 NB.
+
+`fxp_gemm_codes` and `fxp4_gemm_packed` are the raw code GEMMs: the exact
+int32 product with no epilogue, on int8 or wider codes (the caller owns the
+bound K * qmax^2 < 2^31 past 8 bits), or on packed FxP4 weights.
+
 Replaces src/repro/kernels/fxp_gemm/fxp_gemm.py::fxp_gemm_fused_pallas
-for int8 codes (FxP <= 8). Packed FxP4 nibbles and >8-bit codes are still
-to be ported (ROADMAP.md queue 2, item 7).
+for int8 codes (FxP <= 8) and packed FxP4, ::fxp_gemm_pallas and
+::fxp4_gemm_packed_pallas. The fused path for >8-bit codes is still to be
+ported (ROADMAP.md queue 2, item 7).
 """
 from __future__ import annotations
 
@@ -28,7 +37,9 @@ from ..cordic_af.cordic_af import AF_CODE, KERNEL_AFS, cordic_af_plain
 
 __all__ = ["FUSED_AFS", "fxp_gemm_fused", "fxp_gemm_fused_plain",
            "fxp_gemm_fused_batched", "fxp_gemm_fused_batched_plain",
-           "int_matmul", "k_split"]
+           "fxp_gemm_codes", "fxp_gemm_codes_plain", "fxp4_gemm_packed",
+           "fxp4_gemm_packed_plain", "unpack_nibbles", "int_matmul",
+           "k_split"]
 
 #: AFs the fused epilogue supports (the Flex-PE Sel_AF set minus softmax).
 FUSED_AFS = KERNEL_AFS
@@ -49,12 +60,27 @@ def int_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
     return torch.cat(cols, dim=1).to(torch.int32)
 
 
+def unpack_nibbles(w_bytes: torch.Tensor, n: Optional[int] = None
+                   ) -> torch.Tensor:
+    """Packed int8 bytes [K, NB] -> int8 codes [K, 2 NB] (the first `n`
+    columns when given): byte j's low nibble is element 2j, its high
+    nibble element 2j+1, each sign-extended."""
+    b = w_bytes.to(torch.int32)
+    lo, hi = b & 0xF, (b >> 4) & 0xF
+    codes = torch.stack([lo, hi], dim=-1).reshape(b.shape[0], -1)
+    codes = torch.where(codes >= 8, codes - 16, codes).to(torch.int8)
+    return codes if n is None else codes[:, :n]
+
+
 def fxp_gemm_fused_plain(x_codes: torch.Tensor, w_codes: torch.Tensor,
                          scale: torch.Tensor, af: Optional[str] = None,
-                         hr_stages: int = 4, lv_stages: int = 5
-                         ) -> torch.Tensor:
+                         hr_stages: int = 4, lv_stages: int = 5,
+                         packed: bool = False) -> torch.Tensor:
     """Plain version: int32 [M, N] product, times scale [N] in f32, then
-    the optional CORDIC AF. Any integer code dtype."""
+    the optional CORDIC AF. Any integer code dtype; `packed` weights are
+    unpacked first."""
+    if packed:
+        w_codes = unpack_nibbles(w_codes, scale.numel())
     out = int_matmul(x_codes, w_codes).float() * scale.reshape(1, -1)
     if af is not None:
         out = cordic_af_plain(out, af, hr_stages, lv_stages)
@@ -72,11 +98,21 @@ def fxp_gemm_fused_batched_plain(x_codes: torch.Tensor,
                              lv_stages) for e in range(x_codes.shape[0])])
 
 
-def k_split(m: int, k: int, n: int, experts: int = 1) -> int:
+def _tiles(m: int, packed: bool) -> tuple[int, int]:
+    """(columns per block, row tiles) of the kernel's grid: 256 columns
+    for packed weights, else 128; one tile up to 8 rows, else tiles of 16
+    rows (8 for packed weights)."""
+    return ((2 if packed else 1) * _BLOCK_N,
+            1 if m <= 8 else -(-m // (8 if packed else 16)))
+
+
+def k_split(m: int, k: int, n: int, experts: int = 1,
+            packed: bool = False) -> int:
     """K rows per block: enough blocks to fill the card twice over at
     decode shapes, at most `_MAX_KPS` rows (the staged A slice), a
     multiple of 32 (four rows per warp step, eight warps)."""
-    tiles = -(-n // _BLOCK_N) * -(-m // 16) * experts
+    block_n, m_tiles = _tiles(m, packed)
+    tiles = -(-n // block_n) * m_tiles * experts
     splits = max(-(-k // _MAX_KPS), min(-(-4 * _SMS // tiles), -(-k // 128)))
     kps = -(-k // splits)
     return min(_MAX_KPS, -(-kps // 32) * 32)
@@ -86,15 +122,39 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                   ctypes.c_int),
                "fxp_gemm_fused_batched": ([_P] * 6 + [_I] * 8 + [_P, _P],
-                                          ctypes.c_int)}
+                                          ctypes.c_int),
+               "fxp_gemm_fused_packed": ([_P] * 6 + [_I] * 8 + [_P, _P],
+                                         ctypes.c_int),
+               "fxp_gemm_codes_int8": ([_P] * 5 + [_I] * 7 + [_P],
+                                       ctypes.c_int),
+               "fxp_gemm_codes_wide": ([_P] * 3 + [_I] * 4 + [_P],
+                                       ctypes.c_int)}
 
 
-def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts):
-    """One launch over x [E, M, K], w [E, K, N], scale [E, N] (CUDA, int8
-    codes, checked by the callers) -> f32 [E, M, N]: the expert-batched
-    kernel, or for E = 1 without `experts` the single-matrix one."""
+def _workspace(x_codes, e, m, k, n, packed):
+    """(kps, int32 workspace, semaphore pointer): with split K an int32
+    workspace [E, M, N] and one semaphore per tile, zeroed; one K slice
+    per tile reads neither."""
+    kps = k_split(m, k, n, e, packed)
+    block_n, m_tiles = _tiles(m, packed)
+    tiles = -(-n // block_n) * m_tiles * e
+    ws_len = e * m * n + tiles if kps < k else 1
+    ws = torch.zeros(ws_len, dtype=torch.int32, device=x_codes.device)
+    return kps, ws, (ws[ws_len - tiles:] if kps < k else ws).data_ptr()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
+            packed=False):
+    """One launch over x [E, M, K], w [E, K, N] (or packed bytes [1, K,
+    NB]), scale [E, N] (CUDA, int8 codes, checked by the callers) -> f32
+    [E, M, N]: the expert-batched kernel, or for E = 1 without `experts`
+    the single-matrix one, int8 or packed."""
     e, m, k = x_codes.shape
-    n = w_codes.shape[2]
+    n = scale.numel() // e
     for t in (w_codes, scale):
         if t.device != x_codes.device:
             raise ValueError("operands on different devices")
@@ -102,23 +162,20 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts):
     w_codes = w_codes.contiguous()
     scale = scale.reshape(e, n).to(torch.float32).contiguous()
     out = torch.empty((e, m, n), dtype=torch.float32, device=x_codes.device)
-    kps = k_split(m, k, n, e)
-    m_tiles = 1 if m <= 8 else -(-m // 16)     # MT = 4, 8 or 16 rows
-    tiles = -(-n // _BLOCK_N) * m_tiles * e
-    # with split K: an int32 workspace [E, M, N] and one semaphore per
-    # tile, zeroed; one K slice per tile reads neither
-    ws_len = e * m * n + tiles if kps < k else 1
-    ws = torch.zeros(ws_len, dtype=torch.int32, device=x_codes.device)
-    vec = int(n % 4 == 0 and w_codes.data_ptr() % 4 == 0)
+    kps, ws, sem = _workspace(x_codes, e, m, k, n, packed)
+    ldb = w_codes.shape[2]
+    vec = int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0)
     lib = library("fxp_gemm", _SIGNATURES)
     ptrs = (x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), ws.data_ptr(),
-            ws[ws_len - tiles:].data_ptr() if kps < k else ws.data_ptr())
-    tail = (m, k, n, kps, vec, AF_CODE[af], lv_stages,
-            ctypes.byref(cordic_params(hr_stages)),
-            torch.cuda.current_stream(x_codes.device).cuda_stream)
-    err = (lib.fxp_gemm_fused_batched(*ptrs, e, *tail) if experts
-           else lib.fxp_gemm_fused(*ptrs, *tail))
+            out.data_ptr(), ws.data_ptr(), sem)
+    tail = (kps, vec, AF_CODE[af], lv_stages,
+            ctypes.byref(cordic_params(hr_stages)), _stream(x_codes))
+    if experts:
+        err = lib.fxp_gemm_fused_batched(*ptrs, e, m, k, n, *tail)
+    elif packed:
+        err = lib.fxp_gemm_fused_packed(*ptrs, m, k, n, ldb, *tail)
+    else:
+        err = lib.fxp_gemm_fused(*ptrs, m, k, n, *tail)
     if err != 0:
         raise RuntimeError(f"fxp_gemm_fused launch failed: CUDA error {err}")
     fxp_gemm_fused.launches += 1
@@ -130,29 +187,43 @@ def _check_kernel_operands(x_codes, w_codes):
         raise ValueError(f"no kernel for device {x_codes.device}")
     if x_codes.dtype != torch.int8 or w_codes.dtype != torch.int8:
         raise NotImplementedError(
-            "fxp_gemm_fused kernel takes int8 codes only; packed FxP4 and "
-            ">8-bit codes are ROADMAP.md queue 2, item 7")
+            "fxp_gemm_fused kernel takes int8 codes (or packed FxP4 bytes) "
+            "only; the fused path for >8-bit codes is ROADMAP.md queue 2, "
+            "item 7")
+
+
+def _check_packed(w_bytes, n):
+    if w_bytes.dim() != 2 or not 0 < n <= 2 * w_bytes.shape[1]:
+        raise ValueError(f"packed weight {tuple(w_bytes.shape)} holds at "
+                         f"most {2 * w_bytes.shape[-1]} columns, not {n}")
 
 
 def fxp_gemm_fused(x_codes: torch.Tensor, w_codes: torch.Tensor,
                    scale: torch.Tensor, af: Optional[str] = None,
-                   hr_stages: int = 4, lv_stages: int = 5) -> torch.Tensor:
+                   hr_stages: int = 4, lv_stages: int = 5,
+                   packed: bool = False) -> torch.Tensor:
     """x_codes int8 [M, K] @ w_codes int8 [K, N] -> f32 [M, N] =
-    AF(acc * scale[N]). CUDA tensors launch the kernel; CPU tensors run
-    the plain version."""
+    AF(acc * scale[N]); with `packed`, w_codes is packed FxP4 bytes
+    [K, NB] and N = scale.numel(). CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
     if af is not None and af not in FUSED_AFS:
         raise ValueError(f"unsupported fused af {af!r}")
+    k = x_codes.shape[1]
+    n = scale.numel()
+    if packed:
+        _check_packed(w_codes, n)
+    elif w_codes.shape[1] != n:
+        raise ValueError(f"shape mismatch: w {tuple(w_codes.shape)}, "
+                         f"scale {n}")
+    if w_codes.shape[0] != k:
+        raise ValueError(f"shape mismatch: x {tuple(x_codes.shape)}, "
+                         f"w {tuple(w_codes.shape)}")
     if x_codes.device.type == "cpu":
         return fxp_gemm_fused_plain(x_codes, w_codes, scale, af, hr_stages,
-                                    lv_stages)
+                                    lv_stages, packed)
     _check_kernel_operands(x_codes, w_codes)
-    m, k = x_codes.shape
-    k2, n = w_codes.shape
-    if k2 != k or scale.numel() != n:
-        raise ValueError(f"shape mismatch: x {tuple(x_codes.shape)}, "
-                         f"w {tuple(w_codes.shape)}, scale {scale.numel()}")
     return _launch(x_codes[None], w_codes[None], scale, af, hr_stages,
-                   lv_stages, experts=False)[0]
+                   lv_stages, experts=False, packed=packed)[0]
 
 
 fxp_gemm_fused.launches = 0
@@ -181,3 +252,105 @@ def fxp_gemm_fused_batched(x_codes: torch.Tensor, w_codes: torch.Tensor,
     _check_kernel_operands(x_codes, w_codes)
     return _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages,
                    experts=True)
+
+
+# ---------------------------------------------------------------------------
+# raw code GEMMs: the exact int32 product, no epilogue
+# ---------------------------------------------------------------------------
+
+_WIDE = (torch.int8, torch.int16, torch.int32)
+
+
+def fxp_gemm_codes_plain(x_codes: torch.Tensor, w_codes: torch.Tensor
+                         ) -> torch.Tensor:
+    """int [M, K] @ int [K, N] -> int32 [M, N] in plain PyTorch."""
+    return int_matmul(x_codes, w_codes)
+
+
+def fxp4_gemm_packed_plain(x_codes: torch.Tensor, w_packed: torch.Tensor
+                           ) -> torch.Tensor:
+    """int8 [M, K] @ packed FxP4 bytes [K, N/2] -> int32 [M, N]."""
+    return int_matmul(x_codes, unpack_nibbles(w_packed))
+
+
+def _raw_int8(x_codes, w_codes, n, packed):
+    m, k = x_codes.shape
+    x_codes, w_codes = x_codes.contiguous(), w_codes.contiguous()
+    out = torch.empty((m, n), dtype=torch.int32, device=x_codes.device)
+    kps, ws, sem = _workspace(x_codes, 1, m, k, n, packed)
+    ldb = w_codes.shape[1]
+    vec = int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0)
+    err = library("fxp_gemm", _SIGNATURES).fxp_gemm_codes_int8(
+        x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), sem, m, k, n, ldb, int(packed), kps, vec,
+        _stream(x_codes))
+    if err != 0:
+        raise RuntimeError(f"code GEMM launch failed: CUDA error {err}")
+    return out
+
+
+def _check_raw(x_codes, w_codes, k_w):
+    if x_codes.is_floating_point() or w_codes.is_floating_point():
+        raise TypeError(f"code GEMM wants integer codes, not "
+                        f"{x_codes.dtype} and {w_codes.dtype}")
+    if x_codes.dim() != 2 or w_codes.dim() != 2 or k_w != x_codes.shape[1]:
+        raise ValueError(f"shape mismatch: x {tuple(x_codes.shape)}, "
+                         f"w {tuple(w_codes.shape)}")
+    if x_codes.device != w_codes.device:
+        raise ValueError("operands on different devices")
+    if x_codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x_codes.device}")
+
+
+def fxp_gemm_codes(x_codes: torch.Tensor, w_codes: torch.Tensor
+                   ) -> torch.Tensor:
+    """Raw code GEMM: int [M, K] @ int [K, N] -> int32 [M, N], exact
+    int32 sums. int8 codes on both sides take the __dp4a walk; int16 or
+    int32 codes (the wider of the two dtypes for both) a plain int32
+    multiply-add, exact while K * qmax^2 < 2^31, which the caller owns.
+    CUDA tensors launch a kernel; CPU tensors run the plain version."""
+    _check_raw(x_codes, w_codes, w_codes.shape[0])
+    if x_codes.device.type == "cpu":
+        return fxp_gemm_codes_plain(x_codes, w_codes)
+    if x_codes.dtype not in _WIDE or w_codes.dtype not in _WIDE:
+        raise NotImplementedError(
+            f"code GEMM of {x_codes.dtype} and {w_codes.dtype}: integer "
+            "codes of 8, 16 or 32 bits only")
+    m, n = x_codes.shape[0], w_codes.shape[1]
+    if x_codes.dtype == w_codes.dtype == torch.int8:
+        out = _raw_int8(x_codes, w_codes, n, packed=False)
+    else:
+        wide = max(x_codes.dtype, w_codes.dtype, key=_WIDE.index)
+        xw = x_codes.to(wide).contiguous()
+        ww = w_codes.to(wide).contiguous()
+        out = torch.empty((m, n), dtype=torch.int32, device=x_codes.device)
+        err = library("fxp_gemm", _SIGNATURES).fxp_gemm_codes_wide(
+            xw.data_ptr(), ww.data_ptr(), out.data_ptr(), m,
+            x_codes.shape[1], n, xw.element_size(), _stream(xw))
+        if err != 0:
+            raise RuntimeError(f"code GEMM launch failed: CUDA error {err}")
+    fxp_gemm_codes.launches += 1
+    return out
+
+
+fxp_gemm_codes.launches = 0
+
+
+def fxp4_gemm_packed(x_codes: torch.Tensor, w_packed: torch.Tensor
+                     ) -> torch.Tensor:
+    """Raw code GEMM on packed FxP4 weights: int8 [M, K] @ bytes [K, N/2]
+    -> int32 [M, N] (N = 2 x the byte columns; byte j holds columns 2j
+    and 2j+1). CUDA tensors launch the kernel; CPU tensors run the plain
+    version."""
+    _check_raw(x_codes, w_packed, w_packed.shape[0])
+    if x_codes.device.type == "cpu":
+        return fxp4_gemm_packed_plain(x_codes, w_packed)
+    if x_codes.dtype != torch.int8 or w_packed.dtype != torch.int8:
+        raise NotImplementedError("packed code GEMM takes int8 codes and "
+                                  "int8 nibble bytes")
+    out = _raw_int8(x_codes, w_packed, 2 * w_packed.shape[1], packed=True)
+    fxp4_gemm_packed.launches += 1
+    return out
+
+
+fxp4_gemm_packed.launches = 0

@@ -1,5 +1,6 @@
-"""paged_attention_float: one-query GQA decode attention straight off the
-paged KV pool `[NB, bs, KV, hd]` through per-row block tables.
+"""paged_attention_float and paged_attention_int: one-query GQA decode
+attention straight off the paged KV pool `[NB, bs, KV, hd]` through
+per-row block tables.
 
 `paged_attention_float` is the wrapper: CUDA tensors launch the
 hand-written Hopper kernel (`csrc/paged_attention.cu`) or raise; CPU
@@ -13,22 +14,33 @@ PyTorch over the gathered per-row view. Both:
   * take the full-row max, exp (exact or CORDIC), sum, AV and divide
     (exact, or LV CORDIC on operands scaled into [-1, 1]).
 
+`paged_attention_int` (fully integer attention on the int8 pool, q
+quantized by the caller) has the same wrapper contract, its plain version
+`paged_attention_int_plain` runs `int_attention` over the gathered view,
+the function `models.layers.int8_decode_attention` runs too: int8 q.k
+code dots, the scales folded in the reference's order, the mask, the
+softmax, p x v_scale requantized per row, and the int8 AV dot.
+
 Replaces src/repro/kernels/paged_attention/paged_attention.py::
-paged_attention_float_pallas (both its dequant and its float body).
+paged_attention_float_pallas (both its dequant and its float body) and
+::paged_attention_int_pallas.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from ...core import cordic
+from ...core.fxp import FxPFormat, quantize
 from ..build import cordic_params, library
 
 __all__ = ["paged_attention_float", "paged_attention_float_plain",
-           "gather_pool_view", "masked_attention", "softmax_fns",
-           "scores_in_scratch"]
+           "paged_attention_int", "paged_attention_int_plain",
+           "gather_pool_view", "masked_attention", "int_attention",
+           "softmax_fns", "scores_in_scratch"]
 
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a block may use
 _MAX_G = 8                      # kMaxG in csrc/paged_attention.cu
@@ -38,15 +50,21 @@ _SIGNATURES = {
     "paged_attention_float": ([_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I,
                                                       _P, _P], ctypes.c_int),
     "paged_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "paged_attention_int": ([_P] * 10 + [_I] * 8 + [_P], ctypes.c_int),
+    "paged_attention_int_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
 }
 
 
-def scores_in_scratch(g: int, hd: int, width: int) -> bool:
+def scores_in_scratch(g: int, hd: int, width: int,
+                      integer: bool = False) -> bool:
     """True when the kernel's [g, width] score row does not fit in shared
     memory and the wrapper hands it a global scratch row instead (width =
-    MB * bs, the table width). Builds the kernel library on first use."""
+    MB * bs, the table width; `integer` asks about the integer body).
+    Builds the kernel library on first use."""
     lib = library("paged_attention", _SIGNATURES)
-    return lib.paged_attention_smem_bytes(g, hd, width) > _SMEM_LIMIT
+    smem = (lib.paged_attention_int_smem_bytes if integer
+            else lib.paged_attention_smem_bytes)
+    return smem(g, hd, width) > _SMEM_LIMIT
 
 
 def gather_pool_view(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -88,6 +106,41 @@ def masked_attention(q, k, v, q_offset, kv_valid, exp_fn, div_fn):
     o = torch.einsum("bqkgs,bskd->bqkgd", p.reshape(b, sq, kvh, g, skv),
                      v.float()).reshape(b, sq, h, hd)
     return div_fn(o, denom[..., None])
+
+
+def _int_dot(spec, a, b):
+    """Exact int32 einsum of integer codes: f64 holds every partial sum of
+    int8 codes exactly (and CUDA has no integer matmul)."""
+    return torch.einsum(spec, a.double(), b.double()).to(torch.int32)
+
+
+def int_attention(q_codes, q_scale, k_codes, v_codes, k_scale, v_scale,
+                  positions, kv_valid, fmt: FxPFormat, softmax_fn=None):
+    """Fully integer masked GQA attention (the reference's
+    `int8_decode_attention` after its q quantize): q_codes [B, Sq, H, hd]
+    int8 with q_scale [B, Sq, H, 1]; k/v codes [B, S, KV, hd] int8 with
+    per-position scales [B, S, KV, 1]; keys above positions[b, i] or at/
+    after kv_valid[b] masked to -1e30. `softmax_fn` is the softmax over the
+    last axis (exact when None). Returns f32 [B, Sq, H, hd]."""
+    b, sq_, h, hd = q_codes.shape
+    skv, kvh = k_codes.shape[1], k_codes.shape[2]
+    g = h // kvh
+    dev = q_codes.device
+    s_int = _int_dot("bqkgd,bskd->bqkgs",
+                     q_codes.reshape(b, sq_, kvh, g, hd), k_codes)
+    ks = k_scale.permute(0, 3, 2, 1).reshape(b, 1, kvh, 1, skv)
+    s = s_int.float() * q_scale.reshape(b, sq_, kvh, g, 1) * ks
+    kv_pos = torch.arange(skv, device=dev)
+    mask = ((kv_pos[None, None, :] <= positions[:, :, None])
+            & (kv_pos[None, None, :] < kv_valid[:, None, None]))
+    s = torch.where(mask[:, :, None, None, :], s, -1e30)
+    p = (torch.softmax(s, dim=-1) if softmax_fn is None
+         else softmax_fn(s))
+    vs = v_scale.permute(0, 3, 2, 1).reshape(b, 1, kvh, 1, skv)
+    pvc, spv = quantize(p.float() * vs, fmt, axis=4)
+    o = _int_dot("bqkgs,bskd->bqkgd", pvc, v_codes)
+    out = o.float() * spv.reshape(b, sq_, kvh, g, 1)
+    return out.reshape(b, sq_, h, hd)
 
 
 def softmax_fns(cordic_softmax: bool, hr_stages: int, lv_stages: int):
@@ -197,3 +250,84 @@ def paged_attention_float(q, k_pool, v_pool, block_tables, meta, *,
 
 
 paged_attention_float.launches = 0
+
+
+def paged_attention_int_plain(q_codes, q_scale, k_pool, v_pool, k_scale,
+                              v_scale, block_tables, meta, *, fmt: FxPFormat,
+                              out_dtype, softmax_fn=None):
+    """q_codes [B, KV, g, hd] int8 with q_scale [B, KV, g, 1] f32 (q /
+    sqrt(hd) quantized per head by the caller); int8 pools [NB, bs, KV, hd]
+    with [NB, bs, KV, 1] f32 scales; block_tables [B, MB] int32 (sentinel
+    NB = unallocated: zero codes and zero scales); meta [B, 3] int32
+    (lengths, kv_valid, query position). `softmax_fn` over the last axis,
+    exact when None. Returns [B, KV*g, hd] in out_dtype."""
+    b, kvh, g, hd = q_codes.shape
+    view = functools.partial(gather_pool_view, block_tables=block_tables)
+    out = int_attention(q_codes.reshape(b, 1, kvh * g, hd),
+                        q_scale.reshape(b, 1, kvh * g, 1), view(k_pool),
+                        view(v_pool), view(k_scale), view(v_scale),
+                        meta[:, 2:3], meta[:, 1], fmt, softmax_fn)
+    return out.reshape(b, kvh * g, hd).to(out_dtype)
+
+
+def paged_attention_int(q_codes, q_scale, k_pool, v_pool, k_scale, v_scale,
+                        block_tables, meta, *, fmt: FxPFormat, out_dtype):
+    """Same contract as `paged_attention_int_plain` with the exact
+    softmax. CUDA tensors launch the kernel (bf16 output, int8 codes of at
+    most 8 bits); CPU tensors run the plain version."""
+    if q_codes.device.type == "cpu":
+        return paged_attention_int_plain(
+            q_codes, q_scale, k_pool, v_pool, k_scale, v_scale,
+            block_tables, meta, fmt=fmt, out_dtype=out_dtype)
+    if q_codes.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q_codes.device}")
+    b, kvh, g, hd = q_codes.shape
+    nb, bs = k_pool.shape[0], k_pool.shape[1]
+    mb = block_tables.shape[1]
+    if out_dtype != torch.bfloat16:
+        raise NotImplementedError("paged_attention_int kernel returns bf16")
+    if fmt.bits > 8 or not (q_codes.dtype == k_pool.dtype == v_pool.dtype
+                            == torch.int8):
+        raise NotImplementedError("paged_attention_int kernel takes int8 "
+                                  "codes of at most 8 bits")
+    if g > _MAX_G:
+        raise NotImplementedError(f"at most {_MAX_G} query heads per KV head")
+    if hd % 16:
+        raise NotImplementedError("head_dim must be a multiple of 16")
+    if tuple(k_pool.shape[2:]) != (kvh, hd) or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
+                         f"q {tuple(q_codes.shape)}")
+    dev = q_codes.device
+    tensors = [q_scale, k_pool, v_pool, k_scale, v_scale, block_tables, meta]
+    if any(t.device != dev for t in tensors):
+        raise ValueError("operands on different devices")
+    q_codes = q_codes.contiguous()
+    q_scale = q_scale.to(torch.float32).contiguous()
+    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    k_scale = k_scale.to(torch.float32).contiguous()
+    v_scale = v_scale.to(torch.float32).contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    meta = meta.to(torch.int32).contiguous()
+    if any(t.data_ptr() % 16 for t in (q_codes, k_pool, v_pool)):
+        raise ValueError("q codes and pools must be 16-byte aligned")
+    lib = library("paged_attention", _SIGNATURES)
+    scratch = None
+    if scores_in_scratch(g, hd, mb * bs, integer=True):
+        scratch = torch.empty((b, kvh, g, mb * bs), dtype=torch.float32,
+                              device=dev)
+    out = torch.empty((b, kvh * g, hd), dtype=torch.bfloat16, device=dev)
+    err = lib.paged_attention_int(
+        q_codes.data_ptr(), q_scale.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        b, nb, bs, kvh, g, hd, mb, fmt.qmax,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_attention_int launch failed: CUDA error {err}")
+    paged_attention_int.launches += 1
+    return out
+
+
+paged_attention_int.launches = 0

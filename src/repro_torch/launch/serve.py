@@ -4,7 +4,8 @@
         --policy flexpe-fxp8 --kv-block-size 16 --requests 8 --slots 4 \\
         --prompt-len 64 --mixed --gen 16
 
-`--arch deepseek_moe_16b` serves the MoE family the same way.
+`--arch deepseek_moe_16b` serves the MoE family the same way, and
+`--policy edge4` serves FxP4 (packed-nibble weights, FxP4 activations).
 
 Builds random weights from `--seed` (quantize-once FxP codes for an FxP
 policy), a `ServingEngine` over a paged or contiguous KV cache, submits
@@ -28,7 +29,8 @@ from ..core.qtensor import packed_bytes, quantize_params
 from ..kernels.cordic_af.cordic_af import cordic_af
 from ..kernels.cordic_softmax.cordic_softmax import cordic_softmax
 from ..kernels.fxp_gemm.fxp_gemm import fxp_gemm_fused
-from ..kernels.paged_attention.paged_attention import paged_attention_float
+from ..kernels.paged_attention.paged_attention import (paged_attention_float,
+                                                      paged_attention_int)
 from ..models import model as M
 from ..serving import Request, SamplingParams, ServingEngine
 from ..serving.scheduler import POLICIES
@@ -37,7 +39,8 @@ from ..serving.scheduler import POLICIES
 #: the kernel wrappers of the serving path, each with its launch counter
 KERNELS = {"fxp_gemm_fused": fxp_gemm_fused,
            "paged_attention_float": paged_attention_float,
-           "cordic_af": cordic_af, "cordic_softmax": cordic_softmax}
+           "cordic_af": cordic_af, "cordic_softmax": cordic_softmax,
+           "paged_attention_int": paged_attention_int}
 
 
 def launch_counts() -> dict:

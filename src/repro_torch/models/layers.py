@@ -15,6 +15,7 @@ old cache keep their own copy.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -23,6 +24,7 @@ from ..core.activation import default_stages, softmax_lv_stages
 from ..core.fxp import FORMATS, dequantize, quantize
 from ..core.precision import PrecisionPolicy, qmatmul, quantize_activation
 from ..kernels.paged_attention.paged_attention import (gather_pool_view,
+                                                      int_attention,
                                                       masked_attention,
                                                       softmax_fns)
 
@@ -104,6 +106,28 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
                              qoff + i * qc, kvv, *fns).to(q.dtype)
             for i in range(nq)]
     return torch.cat(outs, dim=1)
+
+
+def int8_decode_attention(q, k_codes, v_codes, k_scale, v_scale, fmt,
+                          policy, positions, kv_valid_len):
+    """Attention on integer KV codes (the Flex-PE FxP MAC applied to
+    attention): q / sqrt(hd) quantized per head over hd, int8 q.k code
+    dots dequantized by the folded (q, per-position k) scales, the mask,
+    the policy's softmax, p x v_scale requantized per row, and the int8 AV
+    dot times its scale.
+
+    q: [B, Sq, H, hd] float; k/v codes [B, S, KV, hd] int8 with scales
+    [B, S, KV, 1]; `positions` [B, Sq] are the queries' absolute cache
+    positions and `kv_valid_len` [B] each row's valid cache length. Returns
+    [B, Sq, H, hd] in q.dtype."""
+    hd = q.shape[-1]
+    qc, sq = quantize(q.float() / math.sqrt(hd), fmt, axis=3)
+    softmax_fn = ((lambda s: policy.softmax(s, axis=-1)) if policy
+                  else None)
+    kvv = torch.broadcast_to(torch.as_tensor(
+        kv_valid_len, dtype=torch.int32, device=q.device), (q.shape[0],))
+    return int_attention(qc, sq, k_codes, v_codes, k_scale, v_scale,
+                         positions, kvv, fmt, softmax_fn).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +321,11 @@ def attention(p, x, cfg, *, positions, policy=None, cache=None,
             lengths=lengths, kv_valid=kv_valid, positions=positions,
             fmt=kq_fmt, int_attention=int_attn)
     elif int_attn:
-        raise NotImplementedError("integer decode attention is ROADMAP.md "
-                                  "queue 2, item 5")
+        # integer attention over the (gathered) codes: chunked prefill, and
+        # every step of a contiguous cache
+        out = int8_decode_attention(
+            q, view(kc), view(vc), view(k_scale), view(v_scale), kq_fmt,
+            policy, positions=positions, kv_valid_len=kv_valid)
     else:
         if kq_fmt is not None:
             k_full = dequantize(view(kc), view(k_scale), torch.bfloat16)

@@ -13,7 +13,12 @@ the attention output is bf16 and its reductions run in another order
 than the plain einsums, so it is held within 1% of the output's range;
 the CORDIC AF and the CORDIC softmax are bit-equal (the same f32
 operations, the softmax's row sum in the same fixed order); a reduced
-MoE layer through the kernels is bit-equal to the plain backend."""
+MoE layer through the kernels is bit-equal to the plain backend. The
+packed-FxP4 GEMM and the raw code GEMMs are bit-equal (exact int32 sums);
+the integer attention's dots are exact, but its softmax sums and
+exponentiates in another order than torch's, and a p x v_scale code that
+flips with that moves the output by one v step times the row scale: it
+is held within 1% of the output's range."""
 import numpy as np
 import pytest
 import torch
@@ -28,11 +33,14 @@ from repro_torch.kernels.cordic_af.cordic_af import (KERNEL_AFS, cordic_af,
                                                      cordic_af_reference)
 from repro_torch.kernels.cordic_softmax.cordic_softmax import (
     cordic_softmax, cordic_softmax_plain, cordic_softmax_reference)
-from repro_torch.kernels.fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
-                                                   fxp_gemm_fused_batched,
-                                                   fxp_gemm_fused_plain)
+from repro_torch.core.fxp import FORMATS, quantize
+from repro_torch.kernels.fxp_gemm.fxp_gemm import (
+    FUSED_AFS, fxp4_gemm_packed, fxp4_gemm_packed_plain, fxp_gemm_codes,
+    fxp_gemm_codes_plain, fxp_gemm_fused, fxp_gemm_fused_batched,
+    fxp_gemm_fused_plain)
 from repro_torch.kernels.paged_attention.paged_attention import (
-    paged_attention_float, paged_attention_float_plain, scores_in_scratch)
+    paged_attention_float, paged_attention_float_plain, paged_attention_int,
+    paged_attention_int_plain, scores_in_scratch)
 
 
 @pytest.fixture
@@ -55,6 +63,58 @@ def test_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, af):
     got = fxp_gemm_fused(x, w, scale, af=af)
     assert fxp_gemm_fused.launches == before + 1
     assert torch.equal(got, fxp_gemm_fused_plain(x, w, scale, af=af))
+
+
+@pytest.mark.parametrize("m,k,n,nb", [(4, 512, 1000, 500), (13, 1030, 384, 192),
+                                      (20, 96, 130, 65), (16, 5120, 1024, 512),
+                                      (4, 5120, 5117, 2560)])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_packed_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, nb, af):
+    """Packed FxP4 weights [K, nb] bytes holding N <= 2 nb columns: whole
+    word loads (nb a multiple of 4) and byte loads (nb = 65), ragged N,
+    one row tile (M <= 8) and several (M 13, 16, 20)."""
+    rng = np.random.default_rng(m * 13 + n)
+    x = torch.from_numpy(rng.integers(-8, 8, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, nb), dtype=np.int8))
+    scale = torch.from_numpy((rng.random(n) * 1e-2).astype(np.float32))
+    x, w, scale = x.to(cuda), w.to(cuda), scale.to(cuda)
+    before = fxp_gemm_fused.launches
+    got = fxp_gemm_fused(x, w, scale, af=af, packed=True)
+    assert fxp_gemm_fused.launches == before + 1
+    assert torch.equal(got, fxp_gemm_fused_plain(x, w, scale, af=af,
+                                                 packed=True))
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 5120, 512), (5, 1030, 130),
+                                   (17, 96, 64)])
+def test_code_gemm_kernels_bit_equal_to_plain(cuda, m, k, n):
+    """The raw int32 code GEMMs: int8 codes (the __dp4a walk), FxP12
+    codes in int16 and small int32 codes (the wide kernel, inside the
+    caller's bound K * qmax^2 < 2^31), int8 against int16, and packed
+    FxP4 weights."""
+    rng = np.random.default_rng(m + k + n)
+
+    def codes(shape, q, dtype):
+        return torch.from_numpy(rng.integers(-q, q + 1, shape).astype(
+            dtype)).to(cuda)
+    kq = min(2047, int((2 ** 31 / k) ** 0.5) - 1)
+    cases = [(codes((m, k), 127, np.int8), codes((k, n), 127, np.int8)),
+             (codes((m, k), kq, np.int16), codes((k, n), kq, np.int16)),
+             (codes((m, k), 300, np.int32), codes((k, n), 300, np.int32)),
+             (codes((m, k), 127, np.int8), codes((k, n), kq, np.int16))]
+    for x, w in cases:
+        before = fxp_gemm_codes.launches
+        got = fxp_gemm_codes(x, w)
+        assert fxp_gemm_codes.launches == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, fxp_gemm_codes_plain(x, w)), (x.dtype,
+                                                                w.dtype)
+    x = codes((m, k), 7, np.int8)
+    wp = codes((k, n // 2), 127, np.int8)
+    before = fxp4_gemm_packed.launches
+    got = fxp4_gemm_packed(x, wp)
+    assert fxp4_gemm_packed.launches == before + 1
+    assert torch.equal(got, fxp4_gemm_packed_plain(x, wp))
 
 
 def _tables(long_rows):
@@ -124,6 +184,32 @@ def test_paged_attention_kernel_matches_plain(cuda, quant, long_rows):
     # the idle row reads only sentinel blocks (V exactly zero): a zero
     # numerator, which the LV divide resolves to within 2^-lv
     assert got[2].abs().max().item() <= 2.0 ** -(lv - 1)
+
+
+@pytest.mark.parametrize("long_rows", [False, True],
+                         ids=["scores-in-smem", "scores-in-global-scratch"])
+def test_paged_attention_int_kernel_matches_plain(cuda, long_rows):
+    """Integer decode attention (exact softmax) against its plain version
+    on the short and the long tables (the long one's [g, MB*bs] score row
+    lives in a global scratch row); the idle row reads only sentinel
+    blocks, whose zero V scales give an exact zero."""
+    q, k, v, ks, vs, tables, meta = [
+        t.to(cuda) for t in _pools(True, long_rows)]
+    fmt = FORMATS["fxp8"]
+    qc, sq = quantize(q.float() / q.shape[-1] ** 0.5, fmt, axis=3)
+    width = tables.shape[1] * k.shape[1]
+    assert scores_in_scratch(q.shape[2], q.shape[3], width,
+                             integer=True) == long_rows
+    args = (qc, sq, k, v, ks, vs, tables, meta)
+    before = paged_attention_int.launches
+    got = paged_attention_int(*args, fmt=fmt, out_dtype=torch.bfloat16)
+    assert paged_attention_int.launches == before + 1
+    want = paged_attention_int_plain(*args, fmt=fmt,
+                                     out_dtype=torch.bfloat16)
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert (got[2] == 0).all()
 
 
 def test_unported_paths_raise_on_cuda(cuda):

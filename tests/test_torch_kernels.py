@@ -130,11 +130,19 @@ def test_shared_activation_quantization_is_bit_identical(backend, af):
 
 
 def test_gemm_kernels_raise_on_unported_code_paths():
-    x = torch.zeros((2, 16))
-    packed = tquantize_tensor(torch.ones((16, 8)), "fxp4")
+    """What the kernels backend still refuses (ROADMAP.md queue 2, item
+    7): the fused GEMM on >8-bit codes, and packed FxP4 expert banks."""
+    wide = tquantize_tensor(torch.ones((16, 8)), "fxp16")
     with pytest.raises(NotImplementedError, match="queue 2, item 7"):
-        tdispatch.matmul(x, packed, TPolicy.edge4(backend="kernels"),
+        tdispatch.matmul(torch.zeros((2, 16)), wide,
+                         TPolicy.flexpe(16, backend="kernels"),
                          backend="kernels")
+    bank = tquantize_tensor(torch.ones((3, 16, 8)), "fxp4")
+    assert bank.packed and bank.ndim == 3
+    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
+        tdispatch.expert_matmul(torch.zeros((1, 3, 2, 16)), bank,
+                                TPolicy.edge4(backend="kernels"),
+                                backend="kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +224,13 @@ def test_paged_attention_reference_backend_is_plain():
     ref = tdispatch.paged_attention(*args, pol, "reference", **kw)
     ker = tdispatch.paged_attention(*args, pol, "kernels", **kw)
     assert torch.equal(ref, ker)       # CPU tensors: the same plain code
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        tdispatch.paged_attention(*args, pol, "kernels",
-                                  **dict(kw, int_attention=True))
+    # integer attention: with the exact softmax the kernel's plain version,
+    # with a CORDIC one the gathered composition on both backends
+    kw["int_attention"] = True
+    for pol in (TPolicy.flexpe(8), TPolicy.flexpe(8, af_impl="exact")):
+        assert torch.equal(
+            tdispatch.paged_attention(*args, pol, "reference", **kw),
+            tdispatch.paged_attention(*args, pol, "kernels", **kw))
 
 
 # ---------------------------------------------------------------------------
