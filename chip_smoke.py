@@ -9,8 +9,10 @@ Phases, one line each, any failure exits non-zero before the last line:
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes, with its time, the plain
                 version's time and its bound: the GEMM (bit-equal) at the
-                dense projections, on int8 and on packed FxP4 weights, and,
-                batched over 64 experts, at the MoE banks; the raw code
+                dense projections, on int8, on packed FxP4 weights and on
+                FxP16 codes in int16 (the wide mode, beside torch.matmul of
+                the codes in f32), and, batched over 64 experts, at the MoE
+                banks, int8 and packed FxP4; the raw code
                 GEMMs (bit-equal; int8 beside torch._int_mm, int16, packed
                 FxP4); the float attention (within 1%) at g 5 and g 1, and
                 at long rows whose score row lives in a global scratch
@@ -19,22 +21,31 @@ Phases, one line each, any failure exits non-zero before the last line:
                 activations; the CORDIC softmax (bit-equal) at the
                 router's rows and a wide row;
   4. check    — reduced Qwen2.5-14B (under FxP8, edge4 and integer
-                attention) and reduced DeepSeekMoE-16B (FxP8), each served
-                through the kernels and through the plain path on the
-                card: the same greedy tokens;
-  5. serve    — four paths, each at full width from seed 0: Qwen2.5-14B
+                attention) and reduced DeepSeekMoE-16B (FxP8 and edge4),
+                each served through the kernels and through the plain path
+                on the card: the same greedy tokens; the reduced fleet of
+                an fxp8 and an fxp16 replica over one TieredWeights bank:
+                the same tiers and tokens on both paths, and with every
+                request pinned to one tier, the tokens of a single engine
+                of that tier over the same bank;
+  5. serve    — six paths, each at full width from seed 0: Qwen2.5-14B
                 (48 layers) with FxP8 weights, DeepSeekMoE-16B (28 layers)
                 with FxP8 weights, Qwen2.5-14B under edge4 (packed FxP4
-                weights and activations) and Qwen2.5-14B under integer
-                attention (FxP8, exact AF, `int_attention`); each with
-                paged int8 KV (block 16), 4 slots, 8 mixed requests
-                (prompts 40-64), 16 greedy tokens each, prefill chunk 16,
-                overlap loop; the launches of every kernel counted over
-                each serve run (set to 0 just before it) and per decode
-                step against the model's count, tokens identical on a
-                rerun, one decode step of the rerun traced with the
-                profiler (kernel device time and the device's idle share),
-                memory on the card and its peak.
+                weights and activations), Qwen2.5-14B under integer
+                attention (FxP8, exact AF, `int_attention`),
+                DeepSeekMoE-16B under edge4 (packed FxP4 expert banks) and
+                the precision-tiered fleet of Qwen2.5-14B (an fxp8 and an
+                fxp16 replica over one TieredWeights bank, tiered routing,
+                threshold 1.0, priority 0); each with paged int8 KV (block
+                16), 4 slots (per replica), 8 mixed requests (prompts
+                40-64), 16 greedy tokens each, prefill chunk 16, overlap
+                loop; the launches of every kernel, and of each GEMM mode,
+                counted over each serve run (set to 0 just before it) and
+                per decode step (of each replica) against the model's
+                count, tokens identical on a rerun, one decode step of
+                each replica of the rerun traced with the profiler (kernel
+                device time and the device's idle share), memory on the
+                card and its peak.
 The second-to-last lines are the card line and the kernels JSON; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -58,6 +69,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 SLOTS = 4
+FLEET = ("fxp8", "fxp16")      # the tiered fleet's replicas
+TRACE_TRIES = 3                # decode steps traced at most per replica
 
 
 def fail(msg: str):
@@ -101,26 +114,36 @@ def device_records(prof) -> dict:
     return out
 
 
-def matching(records: dict, match: str | None):
+def matching(records: dict, match):
     """(launches, device ms) of the records whose name contains `match`
-    (every record when None)."""
-    sel = [v for k, v in records.items() if match is None or match in k]
+    (one name, or any of a tuple of names; every record when None)."""
+    names = (match,) if isinstance(match, str) else match
+    sel = [v for k, v in records.items()
+           if names is None or any(n in k for n in names)]
     return sum(c for c, _ in sel), sum(ms for _, ms in sel)
 
 
-def device_ms(fn, iters: int, match: str | None = None):
+def device_ms(fn, iters: int, match: str | None = None, tries: int = 3):
     """Mean device time per call of `fn()` from the profiler's CUDA kernel
-    records: the kernels whose name contains `match`, or every kernel the
-    call launches. None when the profiler records no device time."""
+    records: the kernels whose name contains `match` (one launch per
+    call), or every kernel the call launches. The profiler now and then
+    loses kernel records; a window that holds fewer than `iters` records
+    of `match` is measured again, up to `tries` windows. None when no
+    window holds them all, or the profiler records no device time."""
     fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = matching(device_records(prof), match)[1]
-    return total / iters if total > 0 else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        count, total = matching(device_records(prof), match)
+        if match is None or count == iters:
+            return total / iters if total > 0 else None
+        print(f"profiler: {count} records of {match} for {iters} launches; "
+              "measuring again", flush=True)
+    return None
 
 
 TIMING = {"source": "profiler"}     # set to "cuda events" on fallback
@@ -297,18 +320,7 @@ def batched_gemm_phase(dev, gen):
                             (SLOTS, 1408, 2048, SLOTS),
                             (16, 2048, 1408, 16),
                             (SLOTS, 2048, 1408, None)):
-        x = torch.zeros((e, m, k), dtype=torch.int8, device=dev)
-        if tokens is None:          # every queue full: all 64 banks read
-            x.random_(-127, 128, generator=gen)
-        else:                       # each token's top-6 experts, in turn
-            choice = torch.stack([torch.randperm(e, generator=gen,
-                                                 device=dev)[:top_k]
-                                  for _ in range(tokens)])
-            for t in range(tokens):
-                for ex in choice[t].tolist():
-                    slot = int((x[ex].abs().sum(-1) > 0).sum())
-                    x[ex, slot].random_(-127, 128, generator=gen)
-                    x[ex, slot, 0] = 1      # no all-zero filled row
+        x = expert_queues(dev, gen, e, m, k, tokens, top_k, 127)
         w = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
                           dtype=torch.int8)
         scale = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-4
@@ -333,6 +345,122 @@ def batched_gemm_phase(dev, gen):
               f"({occupancy}): {ms:.4f} ms on the device (plain loop "
               f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f}% of bound), bit-equal", flush=True)
+
+
+def wide_gemm_phase(dev, gen):
+    """The fused GEMM's wide mode at the full-width model's shapes on FxP16
+    codes in int16 (the fleet's fxp16 replica), bit-equal to its plain
+    version (both take the exact sum of the code products and round it
+    once to f32), beside torch.matmul of the same codes already cast to
+    f32 (TF32 off): the nearest single PyTorch call, which leaves out the
+    casts, the scale and the AF. The bound counts the int16 operand bytes
+    and the 2 M K N products at the f32 rate outside the tensor cores (the
+    table has no int16 rate)."""
+    from repro_torch.kernels.fxp_gemm.fxp_gemm import (
+        fxp_gemm_fused, fxp_gemm_fused_plain)
+    shapes = [(SLOTS, 5120, 5120, None), (SLOTS, 5120, 1024, None),
+              (SLOTS, 5120, 13824, "silu"), (SLOTS, 5120, 13824, None),
+              (SLOTS, 13824, 5120, None), (SLOTS, 5120, 152064, None),
+              (16, 5120, 5120, None)]
+    rows = []
+    for m, k, n, af in shapes:
+        x = torch.randint(-32767, 32768, (m, k), generator=gen, device=dev,
+                          dtype=torch.int16)
+        w = torch.randint(-32767, 32768, (k, n), generator=gen, device=dev,
+                          dtype=torch.int16)
+        scale = torch.rand((n,), generator=gen, device=dev) * 1e-9
+
+        def run():
+            return fxp_gemm_fused(x, w, scale, af=af)
+        got, ref = run(), fxp_gemm_fused_plain(x, w, scale, af=af)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"fxp_gemm_fused wide {m}x{k}x{n}+{af}: not bit-equal to "
+                 f"plain (max |err| {(got - ref).abs().max().item()})")
+        ms = timed(run, 20, "fxp_gemm_wide_kernel")
+        pms = timed(lambda: fxp_gemm_fused_plain(x, w, scale, af=af), 2)
+        xf, wf = x.float(), w.float()
+        lib_ms = timed(lambda: torch.matmul(xf, wf), 20)
+        del xf, wf
+        nbytes = 2 * m * k + 2 * k * n + 4 * n + 4 * m * n
+        bms, by = bound_ms(nbytes, 2.0 * m * k * n, F32_OPS_PER_S)
+        rows.append(dict(m=m, k=k, n=n, af=af, ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                         library_ms=lib_ms))
+        print(f"kernel fxp_gemm_fused wide (FxP16 int16 codes) M={m} K={k} "
+              f"N={n} af={af}: {ms:.4f} ms on the device (plain {pms:.4f} "
+              f"ms, bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f}% of "
+              f"bound; library torch.matmul on f32 codes {lib_ms:.4f} ms), "
+              "bit-equal", flush=True)
+    return rows
+
+
+def expert_queues(dev, gen, e, m, k, tokens, top_k, q):
+    """Activation codes [e, m, k] of a routed bank: each of `tokens`
+    tokens fills a row of its top-k experts' queues (codes in [-q, q], no
+    all-zero filled row); `tokens` None fills every row."""
+    x = torch.zeros((e, m, k), dtype=torch.int8, device=dev)
+    if tokens is None:
+        x.random_(-q, q + 1, generator=gen)
+        return x
+    choice = torch.stack([torch.randperm(e, generator=gen,
+                                         device=dev)[:top_k]
+                          for _ in range(tokens)])
+    for t in range(tokens):
+        for ex in choice[t].tolist():
+            slot = int((x[ex].abs().sum(-1) > 0).sum())
+            x[ex, slot].random_(-q, q + 1, generator=gen)
+            x[ex, slot, 0] = 1
+    return x
+
+
+def packed_batched_gemm_phase(dev, gen):
+    """The expert-batched entry on packed FxP4 banks (DeepSeekMoE under
+    edge4) at the decode and prefill banks, as `batched_gemm_phase`: FxP4
+    activation codes, nibble bytes [64, K, N/2]; bit-equal to its plain
+    per-expert loop. The bound counts half a byte per weight of the
+    experts this input routes to. -> the decode w1 bank's row."""
+    from repro_torch.kernels.fxp_gemm.fxp_gemm import (
+        fxp_gemm_fused_batched, fxp_gemm_fused_batched_plain)
+    e, top_k = 64, 6
+    first = None
+    for m, k, n, tokens in ((SLOTS, 2048, 1408, SLOTS),
+                            (SLOTS, 1408, 2048, SLOTS),
+                            (16, 2048, 1408, 16),
+                            (SLOTS, 2048, 1408, None)):
+        x = expert_queues(dev, gen, e, m, k, tokens, top_k, 7)
+        w = torch.randint(-128, 128, (e, k, n // 2), generator=gen,
+                          device=dev, dtype=torch.int8)
+        scale = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-2
+
+        def run():
+            return fxp_gemm_fused_batched(x, w, scale, packed=True)
+
+        def plain():
+            return fxp_gemm_fused_batched_plain(x, w, scale, packed=True)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"fxp_gemm_fused batched packed E={e} M={m} K={k} N={n}: "
+                 "not bit-equal to the per-expert loop")
+        ms = timed(run, 20, "fxp_gemm_fused_kernel")
+        pms = timed(plain, 2)
+        active = int((x.reshape(e, -1) != 0).any(-1).sum())
+        filled = int((x != 0).any(-1).sum())
+        nbytes = e * m * k + active * k * n // 2 + 4 * e * n + 4 * e * m * n
+        bms, by = bound_ms(nbytes, 2.0 * filled * k * n, INT8_OPS_PER_S)
+        occupancy = ("all queues full" if tokens is None else
+                     f"{tokens} tokens x top-{top_k}: {filled} filled rows "
+                     f"in {active} experts")
+        print(f"kernel fxp_gemm_fused batched packed FxP4 E={e} M={m} K={k} "
+              f"N={n} ({occupancy}): {ms:.4f} ms on the device (plain loop "
+              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"{100 * bms / ms:.1f}% of bound), bit-equal", flush=True)
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         max_abs_err=0.0,
+                         shape=f"E={e} M={m} K={k} N={n} ({occupancy})")
+    return first
 
 
 def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5):
@@ -589,7 +717,8 @@ def policy(name: str, backend: str):
     edge4 (the CLI's edge4: packed FxP4 weights, FxP4 activations, CORDIC
     AF and attention softmax at FxP4 stages) and integer attention (FxP8
     with the exact AF and softmax and `int_attention`, the reference's
-    int8_attn serving variant)."""
+    int8_attn serving variant). The fleet's replicas take the ladder's
+    `tier_policy`."""
     from repro_torch.core.precision import PrecisionPolicy
     if name == "edge4":
         return PrecisionPolicy.edge4(backend=backend)
@@ -600,9 +729,11 @@ def policy(name: str, backend: str):
     return PrecisionPolicy.flexpe(8, backend=backend)
 
 
-#: the served paths: (architecture, policy)
+#: the served paths: (architecture, policy, or "fleet" for the tiered
+#: fleet of FLEET's replicas)
 PATHS = (("qwen2_5_14b", "fxp8"), ("deepseek_moe_16b", "fxp8"),
-         ("qwen2_5_14b", "edge4"), ("qwen2_5_14b", "int-attention"))
+         ("qwen2_5_14b", "edge4"), ("qwen2_5_14b", "int-attention"),
+         ("deepseek_moe_16b", "edge4"), ("qwen2_5_14b", "fleet"))
 
 
 def check_phase(dev, arch, policy_name):
@@ -626,8 +757,59 @@ def check_phase(dev, arch, policy_name):
           flush=True)
 
 
-#: each kernel wrapper's name and the name of its device record
-RECORDS = {"fxp_gemm_fused": "fxp_gemm_fused_kernel",
+def check_fleet_phase(dev):
+    """The reduced fleet (an fxp8 and an fxp16 replica, tiered routing)
+    through the kernels and through the plain path: the same tier stamped
+    on every request and the same greedy tokens. Then the pin contract:
+    with every request pinned to one tier, the fleet gives the tokens of
+    a single engine of that tier over the same bank."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import tier_policy
+    from repro_torch.core.qtensor import TieredWeights
+    from repro_torch.launch.serve import build_fleet, make_requests
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineRouter, ServingEngine
+    cfg = get_config("qwen2_5_14b").reduced()
+    kw = dict(max_slots=SLOTS, max_len=48, prefill_chunk=16,
+              kv_block_size=16, overlap=True)
+    got = {}
+    for backend in ("kernels", "reference"):
+        router = build_fleet(cfg, list(FLEET), backend=backend, seed=0,
+                             device=dev, routing="tiered", **kw)
+        finished = serve_tokens(router, make_requests(cfg, 8, 32, 16,
+                                                      mixed=True, seed=0))[1]
+        got[backend] = [(o.tier, o.tokens) for o in finished]
+    if got["kernels"] != got["reference"]:
+        fail(f"reduced fleet {FLEET}: kernels {got['kernels']} != plain "
+             f"{got['reference']}")
+    placed = sorted({t for t, _ in got["kernels"]})
+    if placed != sorted(FLEET):
+        fail(f"reduced fleet: requests placed on {placed} only")
+    bank = TieredWeights(M.init_params(cfg, 0, device=dev), FLEET,
+                         consume=True)
+    for tier in FLEET:
+        router = EngineRouter(cfg, bank, tiers=list(FLEET), routing="tiered",
+                              backend="kernels", seed=0, device=dev, **kw)
+        pinned = serve_tokens(router, make_requests(
+            cfg, 8, 32, 16, mixed=True, seed=0, tier=tier))[1]
+        single = ServingEngine(cfg, bank.for_tier(tier),
+                               policy=tier_policy(tier, backend="kernels"),
+                               seed=0, device=dev, **kw)
+        alone = serve_tokens(single, make_requests(cfg, 8, 32, 16, mixed=True,
+                                                   seed=0))[0]
+        if [o.tokens for o in pinned] != alone or any(
+                o.tier != tier for o in pinned):
+            fail(f"reduced fleet pinned to {tier}: tokens or tiers differ "
+                 "from a single engine of that tier over the same bank")
+    print(f"check reduced fleet {','.join(FLEET)}: kernels == plain path on "
+          f"the card ({sum(len(t) for _, t in got['kernels'])} greedy "
+          "tokens, the same tiers); pinned to each tier == a single engine "
+          "of that tier over the same bank", flush=True)
+
+
+#: each kernel wrapper's name and the names of its device records
+RECORDS = {"fxp_gemm_fused": ("fxp_gemm_fused_kernel",
+                              "fxp_gemm_wide_kernel"),
            "paged_attention_float": "paged_attention_kernel",
            "cordic_af": "cordic_af_kernel",
            "cordic_softmax": "cordic_softmax_kernel",
@@ -651,67 +833,123 @@ def launches_per_decode_step(cfg, pol) -> dict:
             "paged_attention_int": cfg.n_layers if int_attn else 0}
 
 
+def modes_per_decode_step(cfg, pol) -> dict:
+    """The fused GEMM's launches per decode step by kernel mode: every
+    GEMM on the wide mode past 8 bits; the three routed expert banks of a
+    MoE layer on a batched mode; packed modes under FxP4."""
+    from repro_torch.core.fxp import FORMATS
+    from repro_torch.kernels.fxp_gemm.fxp_gemm import GEMM_MODES
+    n = launches_per_decode_step(cfg, pol)["fxp_gemm_fused"]
+    out = dict.fromkeys(GEMM_MODES, 0)
+    if FORMATS[pol.matmul].bits > 8:
+        out["wide"] = n
+        return out
+    packed = pol.matmul == "fxp4"
+    banks = 3 * cfg.n_layers if cfg.family == "moe" else 0
+    out["batched_packed" if packed else "batched"] = banks
+    out["packed" if packed else "int8"] += n - banks
+    return out
+
+
+def build_path(dev, cfg, policy_name, **kw):
+    """(engine or router, [(label, executor, policy)] of its replicas) of a
+    full-width path, from seed 0."""
+    from repro_torch.launch.serve import build_engine, build_fleet
+    if policy_name == "fleet":
+        router = build_fleet(cfg, list(FLEET), backend="kernels", seed=0,
+                             device=dev, routing="tiered", tier_threshold=1.0,
+                             **kw)
+        return router, [(f"{e.tier} replica", e.ex, e.policy)
+                        for e in router.engines]
+    pol = policy(policy_name, "kernels")
+    engine = build_engine(cfg, pol, seed=0, device=dev, **kw)
+    return engine, [("", engine.ex, pol)]
+
+
 def serve_phase(dev, arch, policy_name):
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import (KERNELS, build_engine,
-                                          launch_counts, make_requests)
+    from repro_torch.launch.serve import (KERNELS, gemm_mode_counts,
+                                          launch_counts, make_requests,
+                                          reset_launch_counts)
     cfg = get_config(arch)
-    pol = policy(policy_name, "kernels")
     label = f"{arch} {policy_name}"
     gen_tokens, prompt_len = 16, 64
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = build_engine(cfg, pol, seed=0, device=dev, max_slots=SLOTS,
-                          max_len=prompt_len + gen_tokens, prefill_chunk=16,
-                          kv_block_size=16, overlap=True)
+    engine, replicas = build_path(dev, cfg, policy_name, max_slots=SLOTS,
+                                  max_len=prompt_len + gen_tokens,
+                                  prefill_chunk=16, kv_block_size=16,
+                                  overlap=True)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     gib = 2 ** 30
     setup_peak = torch.cuda.max_memory_allocated() / gib
+    weights = ""
+    if policy_name == "fleet":
+        per_tier = engine.tiered_weights.bytes_by_tier()
+        weights = "; weight banks " + ", ".join(
+            f"{t} {per_tier[t] / gib:.2f} GiB" for t in FLEET)
     print(f"serve setup: full-width {label}, {cfg.n_layers} layers, random "
-          f"weights quantized to {pol.matmul} in {setup_s:.1f} s, "
-          f"{torch.cuda.memory_allocated() / gib:.2f} GiB on the card, "
-          f"peak {setup_peak:.2f} GiB while building", flush=True)
-    expect = launches_per_decode_step(cfg, pol)
-    if set(expect) != set(KERNELS):
-        fail(f"expected launches {sorted(expect)} do not name every kernel "
-             f"of the serving path {sorted(KERNELS)}")
-    path = list(expect)
+          f"weights quantized to "
+          f"{', '.join(p.matmul for _, _, p in replicas)} in {setup_s:.1f} "
+          f"s, {torch.cuda.memory_allocated() / gib:.2f} GiB on the card, "
+          f"peak {setup_peak:.2f} GiB while building{weights}", flush=True)
+    expect = {name: launches_per_decode_step(cfg, pol)
+              for name, _, pol in replicas}
+    modes = {name: modes_per_decode_step(cfg, pol)
+             for name, _, pol in replicas}
+    for e in expect.values():
+        if set(e) != set(KERNELS):
+            fail(f"expected launches {sorted(e)} do not name every kernel "
+                 f"of the serving path {sorted(KERNELS)}")
+    path = list(KERNELS)
+    mode_names = list(next(iter(modes.values())))
 
     def counts():
-        return tuple(launch_counts()[name] for name in path)
+        c, m = launch_counts(), gemm_mode_counts()
+        return (tuple(c[name] for name in path)
+                + tuple(m[name] for name in mode_names))
 
-    # each decode step: its span on the device stream (events, no sync),
-    # the host time to enqueue it, and the kernel launches it made
-    ex = engine.ex
-    spans = []
-    decode = ex.decode_and_sample
+    def want(name):
+        return (tuple(expect[name][k] for k in path)
+                + tuple(modes[name][k] for k in mode_names))
 
-    def timed_decode(*a, **kw):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        c0 = counts()
-        h0 = time.perf_counter()
-        s.record()
-        out = decode(*a, **kw)
-        e.record()
-        c1 = counts()
-        spans.append((s, e, time.perf_counter() - h0,
-                      tuple(b - a for a, b in zip(c0, c1))))
-        return out
-    ex.decode_and_sample = timed_decode
+    # each replica's decode steps: the span on the device stream (events,
+    # no sync), the host time to enqueue it, and the launches it made
+    spans = {name: [] for name, _, _ in replicas}
+    decodes = {name: ex.decode_and_sample for name, ex, _ in replicas}
+
+    def timed_decode(name):
+        decode = decodes[name]
+
+        def run(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            c0 = counts()
+            h0 = time.perf_counter()
+            s.record()
+            out = decode(*a, **kw)
+            e.record()
+            c1 = counts()
+            spans[name].append((s, e, time.perf_counter() - h0,
+                                tuple(b - a for a, b in zip(c0, c1))))
+            return out
+        return run
+    for name, ex, _ in replicas:
+        ex.decode_and_sample = timed_decode(name)
 
     reqs = make_requests(cfg, 8, prompt_len, gen_tokens, mixed=True, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    for name in KERNELS:
-        KERNELS[name].launches = 0
+    reset_launch_counts()
     toks, finished, dt = serve_tokens(engine, reqs)
-    launches = {name: KERNELS[name].launches for name in path}
+    launches = dict(launch_counts())
+    launches.update({f"fxp_gemm_fused:{m}": n
+                     for m, n in gemm_mode_counts().items()})
+    # the int8-code kernels: the dense entry and the expert banks
+    launches["fxp_gemm_fused:int8 codes"] = (launches["fxp_gemm_fused:int8"]
+                                             + launches[
+                                                 "fxp_gemm_fused:batched"])
     serve_peak = torch.cuda.max_memory_allocated() / gib
-    n_decode = len(spans)
-    dev_ms = statistics.median(s.elapsed_time(e) for s, e, _, _ in spans)
-    host_ms = 1e3 * statistics.median(h for _, _, h, _ in spans)
-    per_step = sorted({c for _, _, _, c in spans})
 
     if len(finished) != len(reqs):
         fail(f"serve {label}: {len(finished)} of {len(reqs)} requests "
@@ -720,85 +958,153 @@ def serve_phase(dev, arch, policy_name):
         if len(o.tokens) != gen_tokens or not all(
                 0 <= t < cfg.vocab for t in o.tokens):
             fail(f"serve {label}: request {o.id} returned {o.tokens}")
-    for name, n in launches.items():
-        if expect[name] and n == 0:
-            fail(f"serve {label}: kernel {name} was never launched")
-    if per_step != [tuple(expect[name] for name in path)]:
-        fail(f"serve {label}: launches per decode step {per_step} of "
-             f"{path}, the model needs {[expect[n] for n in path]}")
+    ran = {}
+    for name, _, _ in replicas:
+        for k, n in zip(path + [f"fxp_gemm_fused:{m}" for m in mode_names],
+                        want(name)):
+            ran[k] = ran.get(k, 0) + n
+    for k, n in ran.items():
+        if n and launches[k] == 0:
+            fail(f"serve {label}: kernel {k} was never launched")
+    per_step = {}
+    for name, _, _ in replicas:
+        steps = sorted({c for _, _, _, c in spans[name]})
+        if steps != [want(name)]:
+            fail(f"serve {label} {name}: launches per decode step {steps} of "
+                 f"{path + mode_names}, the model needs {want(name)}")
+        per_step[name] = dict(zip(path + mode_names, steps[0]))
     st = engine.stats()
     total = st["prompt_tokens"] + st["generated_tokens"]
+    step_ms = {name: (statistics.median(s.elapsed_time(e)
+                                        for s, e, _, _ in spans[name]),
+                      1e3 * statistics.median(h for _, _, h, _ in
+                                              spans[name]),
+                      len(spans[name]))
+               for name, _, _ in replicas}
     print(f"serve {label}: {len(finished)} requests, {st['prompt_tokens']} "
           f"prompt + {st['generated_tokens']} generated tokens in {dt:.3f} "
           f"s = {total / dt:.1f} tok/s ({st['generated_tokens'] / dt:.1f} "
-          f"generated tok/s); {n_decode} decode steps, median "
-          f"{dev_ms:.2f} ms on the device stream, {host_ms:.2f} ms to "
-          f"enqueue; launches {launches}, per decode step "
-          f"{dict(zip(path, per_step[0]))}; peak {serve_peak:.2f} GiB on "
-          f"the card while serving", flush=True)
+          "generated tok/s); " + "; ".join(
+              f"{name + ': ' if name else ''}{n} decode steps, median "
+              f"{d:.2f} ms on the device stream, {h:.2f} ms to enqueue"
+              for name, (d, h, n) in step_ms.items())
+          + f"; launches {launches}, per decode step {per_step}; peak "
+          f"{serve_peak:.2f} GiB on the card while serving", flush=True)
+    tiers = None
+    if policy_name == "fleet":
+        tiers = dict(placed=st["tier_placed"], degraded=st["tier_degraded"],
+                     per_replica=[dict(
+                         tier=pe["tier"], requests=pe["dispatched"],
+                         generated_tok_s=pe["generated_tokens"] / dt)
+                         for pe in st["per_engine"]])
+        stamped = {}
+        for o in finished:
+            stamped[o.tier] = stamped.get(o.tier, 0) + 1
+        if stamped != st["tier_placed"] or set(stamped) != set(FLEET):
+            fail(f"serve {label}: tiers stamped {stamped}, placed "
+                 f"{st['tier_placed']}")
+        print(f"serve {label} tiers: placed {st['tier_placed']} "
+              f"({st['tier_degraded']} degraded under pressure); " + "; ".join(
+                  f"{r['tier']} replica {r['requests']} requests, "
+                  f"{r['generated_tok_s']:.1f} generated tok/s"
+                  for r in tiers["per_replica"]), flush=True)
 
-    # rerun: the same tokens; its middle decode step synced on both sides
-    # and traced, so the trace holds that step's kernels and nothing else
-    target, calls, trace = n_decode // 2, [], {}
+    # rerun: the same tokens; a middle decode step of each replica synced
+    # on both sides and traced, so each trace holds that step's kernels and
+    # nothing else. The profiler now and then loses a kernel record: a
+    # trace whose records disagree with the counters is reported and the
+    # next step traced, up to TRACE_TRIES steps
+    traces = {}
 
-    def traced_decode(*a, **kw):
-        calls.append(None)
-        if len(calls) - 1 != target:
-            return decode(*a, **kw)
-        torch.cuda.synchronize()
-        act = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=act) as prof:
-            c0 = counts()
-            h0 = time.perf_counter()
-            out = decode(*a, **kw)
+    def traced_decode(name, target):
+        decode, calls = decodes[name], []
+
+        def run(*a, **kw):
+            calls.append(None)
+            done = traces.setdefault(name, [])
+            if (len(calls) - 1 < target or len(done) >= TRACE_TRIES
+                    or (done and done[-1]["ok"])):
+                return decode(*a, **kw)
             torch.cuda.synchronize()
-            trace["wall_ms"] = 1e3 * (time.perf_counter() - h0)
-            c1 = counts()
-        trace["counted"] = tuple(b - a for a, b in zip(c0, c1))
-        trace["records"] = device_records(prof)
-        return out
-    ex.decode_and_sample = traced_decode
+            act = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=act) as prof:
+                c0 = counts()
+                h0 = time.perf_counter()
+                out = decode(*a, **kw)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - h0)
+                c1 = counts()
+            rec = device_records(prof)
+            counted = tuple(b - a for a, b in zip(c0, c1))[:len(path)]
+            kern = {k: matching(rec, RECORDS[k]) for k in path}
+            done.append(dict(wall_ms=wall_ms, counted=counted, records=rec,
+                             kern=kern, step=(len(calls) - 1,
+                                              len(spans[name])),
+                             ok=tuple(c for c, _ in kern.values())
+                             == counted))
+            return out
+        return run
+    for name, ex, _ in replicas:
+        ex.decode_and_sample = traced_decode(name, len(spans[name]) // 2)
     again, _, dt2 = serve_tokens(engine, make_requests(
         cfg, 8, prompt_len, gen_tokens, mixed=True, seed=0))
-    ex.decode_and_sample = decode
+    for name, ex, _ in replicas:
+        ex.decode_and_sample = decodes[name]
     if again != toks:
         fail(f"serve {label}: rerun of the same workload gave other tokens")
     print(f"serve {label} rerun: identical tokens ({dt2:.3f} s); first "
           f"request {toks[0]}", flush=True)
 
-    rec = trace["records"]
-    kern = {name: matching(rec, RECORDS[name]) for name in path}
-    n_all, all_ms = matching(rec, None)
-    if tuple(kern[name][0] for name in path) != trace["counted"]:
-        fail(f"traced decode step of {label}: kernel records "
-             f"{ {n: c for n, (c, _) in kern.items()} }, the counters say "
-             f"{trace['counted']}")
-    kern_ms = sum(ms for _, ms in kern.values())
-    idle = 1.0 - all_ms / trace["wall_ms"]
-    print(f"traced decode step of {label} (rerun step {target} of "
-          f"{n_decode}, synced, under the profiler): "
-          f"{trace['wall_ms']:.3f} ms wall; device time {all_ms:.3f} ms in "
-          f"{n_all} records = " + " + ".join(
-              f"{c} {name} {ms:.3f} ms" for name, (c, ms) in kern.items())
-          + f" + {n_all - sum(c for c, _ in kern.values())} other "
-          f"{all_ms - kern_ms:.3f} ms; device idle {100 * idle:.1f}% of the "
-          "step", flush=True)
-    top = sorted(rec.items(), key=lambda kv: -kv[1][1])[:8]
-    print(f"traced decode step of {label}, largest device records: "
-          + "; ".join(f"{k[:60]} x{c} {ms:.3f} ms" for k, (c, ms) in top),
-          flush=True)
-    ex.decode_and_sample = decode
+    traced = {}
+    for name, tries in traces.items():
+        for t in tries:
+            if not t["ok"]:
+                print(f"traced decode step of {label} {name} (rerun step "
+                      f"{t['step'][0]}): the profiler holds kernel records "
+                      f"{ {k: c for k, (c, _) in t['kern'].items()} }, the "
+                      f"counters say {t['counted']}; tracing the next step",
+                      flush=True)
+        if not tries or not tries[-1]["ok"]:
+            fail(f"traced decode step of {label} {name}: no traced step's "
+                 f"kernel records match the counters in {TRACE_TRIES} steps")
+        trace = tries[-1]
+        rec, kern = trace["records"], trace["kern"]
+        n_all, all_ms = matching(rec, None)
+        kern_ms = sum(ms for _, ms in kern.values())
+        idle = 1.0 - all_ms / trace["wall_ms"]
+        target, n_decode = trace["step"]
+        print(f"traced decode step of {label}{' ' + name if name else ''} "
+              f"(rerun step {target} of {n_decode}, synced, under the "
+              f"profiler): {trace['wall_ms']:.3f} ms wall; device time "
+              f"{all_ms:.3f} ms in {n_all} records = " + " + ".join(
+                  f"{c} {k} {ms:.3f} ms" for k, (c, ms) in kern.items())
+              + f" + {n_all - sum(c for c, _ in kern.values())} other "
+              f"{all_ms - kern_ms:.3f} ms; device idle {100 * idle:.1f}% of "
+              "the step", flush=True)
+        top = sorted(rec.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"traced decode step of {label}{' ' + name if name else ''}, "
+              "largest device records: " + "; ".join(
+                  f"{k[:60]} x{c} {ms:.3f} ms" for k, (c, ms) in top),
+              flush=True)
+        traced[name or "engine"] = dict(
+            wall_ms=trace["wall_ms"], device_ms=all_ms, idle_share=idle,
+            records=n_all, kernels={k: dict(launches=c, ms=ms)
+                                    for k, (c, ms) in kern.items()})
+    if len(traces) != len(replicas):
+        fail(f"serve {label}: traced {sorted(traces)} of the replicas")
     return launches, dict(
         arch=arch, policy=policy_name, layers=cfg.n_layers, setup_s=setup_s,
         gib_on_card=torch.cuda.memory_allocated() / gib,
         setup_peak_gib=setup_peak, serve_peak_gib=serve_peak,
         tok_s=total / dt, generated_tok_s=st["generated_tokens"] / dt,
-        decode_ms=dev_ms, enqueue_ms=host_ms, seconds=dt,
-        launches_per_decode_step=dict(zip(path, per_step[0])),
-        traced_step=dict(wall_ms=trace["wall_ms"], device_ms=all_ms,
-                         idle_share=idle, kernels={
-                             name: dict(launches=c, ms=ms)
-                             for name, (c, ms) in kern.items()}))
+        seconds=dt, tiers=tiers,
+        decode_ms={name or "engine": d for name, (d, _, _) in
+                   step_ms.items()},
+        enqueue_ms={name or "engine": h for name, (_, h, _) in
+                    step_ms.items()},
+        launches_per_decode_step={name or "engine": v
+                                  for name, v in per_step.items()},
+        traced_step=traced)
 
 
 def kernel_entry(name, source, replaces, row, launches, path=None,
@@ -845,6 +1151,10 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(0)
     gemm_rows, gemm_err = gemm_phase(dev, gen)
+    wide_rows = wide_gemm_phase(dev,
+                                torch.Generator(device=dev).manual_seed(8))
+    packed_bank = packed_batched_gemm_phase(
+        dev, torch.Generator(device=dev).manual_seed(9))
     packed_rows, _ = gemm_phase(dev, torch.Generator(device=dev).manual_seed(5),
                                 packed=True)
     code_rows = code_gemm_phase(dev, torch.Generator(device=dev).manual_seed(6))
@@ -856,7 +1166,9 @@ def main():
     sm_rows = cordic_softmax_phase(
         dev, torch.Generator(device=dev).manual_seed(4))
     for arch, policy_name in PATHS:
-        check_phase(dev, arch, policy_name)
+        if policy_name != "fleet":
+            check_phase(dev, arch, policy_name)
+    check_fleet_phase(dev)
     launches, summaries = {}, []
     for arch, policy_name in PATHS:
         key = f"{arch}/{policy_name}"
@@ -868,22 +1180,39 @@ def main():
     w1 = next(r for r in gemm_rows if r["af"] == "silu")
     w1["max_abs_err"] = gemm_err
     pw1 = next(r for r in packed_rows if r["af"] == "silu")
+    ww1 = next(r for r in wide_rows if r["af"] == "silu")
     gemm_src = "src/repro_torch/csrc/fxp_gemm.cu"
     gemm_ref = "src/repro/kernels/fxp_gemm/fxp_gemm.py"
     attn_src = "src/repro_torch/csrc/paged_attention.cu"
     attn_ref = "src/repro/kernels/paged_attention/paged_attention.py"
     kernels = [
         kernel_entry("fxp_gemm_fused", gemm_src, f"{gemm_ref}:158", w1,
-                     launches, "deepseek_moe_16b/fxp8", call_ms=w1["call_ms"],
+                     launches, "deepseek_moe_16b/fxp8",
+                     counter="fxp_gemm_fused:int8 codes",
+                     call_ms=w1["call_ms"],
                      shape=f"M={w1['m']} K={w1['k']} N={w1['n']} +silu "
                            "(Qwen2.5-14B w1), int8 codes"),
         kernel_entry("fxp_gemm_fused_packed", gemm_src, f"{gemm_ref}:158",
                      pw1, launches, "qwen2_5_14b/edge4",
-                     counter="fxp_gemm_fused", call_ms=pw1["call_ms"],
+                     counter="fxp_gemm_fused:packed", call_ms=pw1["call_ms"],
                      shape=f"M={pw1['m']} K={pw1['k']} N={pw1['n']} +silu "
                            "(Qwen2.5-14B w1), FxP4 codes x packed nibbles "
                            f"(fxp_gemm_fused_pallas packed=True; "
                            f"_unpack_nibbles {gemm_ref}:51)"),
+        kernel_entry("fxp_gemm_fused_wide", gemm_src, f"{gemm_ref}:158",
+                     ww1, launches, "qwen2_5_14b/fleet",
+                     counter="fxp_gemm_fused:wide",
+                     shape=f"M={ww1['m']} K={ww1['k']} N={ww1['n']} +silu "
+                           "(Qwen2.5-14B w1), FxP16 codes in int16 (the "
+                           "fxp16 replica; fxp_gemm_fused_pallas on >8-bit "
+                           "codes)"),
+        kernel_entry("fxp_gemm_fused_batched_packed", gemm_src,
+                     f"{gemm_ref}:158", packed_bank, launches,
+                     "deepseek_moe_16b/edge4",
+                     counter="fxp_gemm_fused:batched_packed",
+                     shape=packed_bank["shape"] + ", FxP4 codes x packed "
+                           "nibble banks (fxp_gemm_fused_pallas packed=True "
+                           "per expert, src/repro/kernels/dispatch.py:309)"),
         kernel_entry("paged_attention_float", attn_src, f"{attn_ref}:172",
                      attn, launches, "deepseek_moe_16b/fxp8",
                      shape="B=4 KV=8 g=5 hd=128 bs=16, 1024-2000 cached "

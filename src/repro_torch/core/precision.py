@@ -154,15 +154,16 @@ class QuantizedActivation(NamedTuple):
 def quantize_activation(x: torch.Tensor, w,
                         policy: Optional[PrecisionPolicy]):
     """`x` quantized the way `qmatmul(x, w, policy)` quantizes it, when
-    that is the integer path (a quantize-once weight of <= 8 bits, and an
-    activation format of <= 8 bits); otherwise `x` unchanged. Every
-    `qmatmul` of the result against such weights gives what it gives on
-    `x`, bit for bit."""
-    if not isinstance(w, QuantizedTensor) or w.fmt.bits > 8:
+    that is the integer path (a quantize-once weight and an activation
+    format of <= 16 bits: int8 codes up to FxP8, int16 codes for FxP12
+    and FxP16), per tensor, with the true divide of `core.fxp.quantize`;
+    otherwise `x` unchanged. Every `qmatmul` of the result against such
+    weights gives what it gives on `x`, bit for bit."""
+    if not isinstance(w, QuantizedTensor) or w.fmt.bits > 16:
         return x
     fmt_x = FORMATS[policy.matmul if policy is not None
                     and policy.matmul is not None else w.fmt_name]
-    if fmt_x.bits > 8:
+    if fmt_x.bits > 16:
         return x
     *lead, kdim = x.shape
     codes, scale = quantize(x.reshape(-1, kdim).float(), fmt_x)

@@ -48,6 +48,24 @@
 //    a warp covers 256 columns and B moves half the int8 bytes. The H100
 //    has no int4 tensor-core rate: unpacking before the product is the
 //    route, as the TPU kernel's _unpack_nibbles is.
+//  * Packed FxP4 expert banks (a fourth instantiation): the expert bank's
+//    grid and zero-row skip over the packed walk, B [E, K, ldb] bytes.
+//
+// Codes wider than 8 bits (FxP12/16 in int16; fxp_gemm_wide_kernel, its
+// own kernel, so the int8 body stays as it is): a product of two int16
+// codes is at most 2^30, exact in int32, but a sum of two is not. The
+// kernel accumulates in f64 instead, which holds every partial sum of
+// integer products exactly while K * 2^30 < 2^53 (K up to 8M): every
+// order gives the exact integer sum, which is rounded once to f32
+// (round to nearest) before the scale. The plain version computes the
+// same exact sum, so the two agree bit for bit, and under the reference's
+// wide_exact bound (K * qmax^2 < 2^31, its int32 accumulator) they equal
+// the reference bit for bit too. Past that bound the reference sums in
+// f32 in XLA's order, within one f32 rounding per step of the exact sum.
+// Each lane loads 4 int16 columns (8 bytes) of a row, converts them once
+// and runs MT f64 FMAs per column; K is split across blocks as for int8,
+// with an f64 workspace (atomic adds of integers below 2^53 are exact in
+// any order).
 //
 // Raw code GEMMs (src/repro/kernels/fxp_gemm/fxp_gemm.py, fxp_gemm_pallas
 // and fxp4_gemm_packed_pallas) are the same walk without the epilogue:
@@ -55,8 +73,7 @@
 // plain tiled int32 multiply-add (gemm_codes_wide_kernel); as in the
 // reference, the caller owns the overflow-free bound K * qmax^2 < 2^31.
 // Not yet: wgmma / mma.sync tensor cores and TMA (they need a k-major
-// weight layout or an in-shared-memory transpose), and the fused epilogue
-// for >8-bit codes.
+// weight layout or an in-shared-memory transpose).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -74,6 +91,11 @@ constexpr int kMaxKSplit = 1024;   // K rows per block (A slice in smem)
 constexpr int kDense = 0;          // int8 codes [K, N]
 constexpr int kExpertBank = 1;     // int8 codes [E, K, N], z = (expert, tile)
 constexpr int kPackedFxP4 = 2;     // nibble bytes [K, ldb], N <= 2 * ldb
+constexpr int kPackedBank = 3;     // nibble bytes [E, K, ldb], z as kExpertBank
+
+__host__ __device__ constexpr bool is_packed(int mode) {
+  return mode == kPackedFxP4 || mode == kPackedBank;
+}
 
 // 4x4 byte transpose: word j of `r` holds four columns of row j; column
 // c's result word holds rows 0..3 of column c
@@ -104,8 +126,8 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
                       unsigned* __restrict__ counters, int M, int K, int N,
                       int ldb, int kps, int vec, int af, int lv_n,
                       CordicParams cp) {
-  constexpr bool kExperts = kMode == kExpertBank;
-  constexpr bool kPacked = kMode == kPackedFxP4;
+  constexpr bool kExperts = kMode == kExpertBank || kMode == kPackedBank;
+  constexpr bool kPacked = is_packed(kMode);
   constexpr int kBN = kPacked ? 2 * kBlockN : kBlockN;   // block columns
   constexpr int kC = kBN / 32;                            // lane columns
   __shared__ int a_s[MT][kMaxKSplit / 4];
@@ -119,7 +141,7 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     const int m_tiles = (M + MT - 1) / MT;
     const int expert = blockIdx.z / m_tiles;
     A += static_cast<size_t>(expert) * M * K;
-    B += static_cast<size_t>(expert) * K * N;
+    B += static_cast<size_t>(expert) * K * (kPacked ? ldb : N);
     scale += static_cast<size_t>(expert) * N;
     out_ = static_cast<float*>(out_) + static_cast<size_t>(expert) * M * N;
     ws += static_cast<size_t>(expert) * M * N;
@@ -315,7 +337,7 @@ cudaError_t launch(const int8_t* a, const int8_t* b, const float* scale,
                    void* out, int* ws, unsigned* counters, int E, int M,
                    int K, int N, int ldb, int kps, int vec, int af, int lv_n,
                    const CordicParams& cp, cudaStream_t stream) {
-  constexpr int kBN = kMode == kPackedFxP4 ? 2 * kBlockN : kBlockN;
+  constexpr int kBN = is_packed(kMode) ? 2 * kBlockN : kBlockN;
   const int splits = (K + kps - 1) / kps;
   dim3 grid((N + kBN - 1) / kBN, splits, E * ((M + MT - 1) / MT));
   fxp_gemm_fused_kernel<MT, kMode, kRaw><<<grid, kThreads, 0, stream>>>(
@@ -330,10 +352,10 @@ int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
              int* ws, unsigned* counters, int E, int M, int K, int N, int ldb,
              int kps, int vec, int af, int lv_n, const CordicParams* cp,
              void* stream) {
-  const int max_mt = kMode == kPackedFxP4 ? 8 : 16;
+  const int max_mt = is_packed(kMode) ? 8 : 16;
   if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || kps <= 0 ||
       kps > kMaxKSplit || kps % 4 != 0 ||
-      (kMode == kPackedFxP4 && (ldb <= 0 || N > 2 * ldb)) ||
+      (is_packed(kMode) && (ldb <= 0 || N > 2 * ldb)) ||
       static_cast<long long>(E) * ((M + max_mt - 1) / max_mt) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -343,7 +365,7 @@ int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
         a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
         *cp, s));
   }
-  if constexpr (kMode == kPackedFxP4) {
+  if constexpr (is_packed(kMode)) {
     return static_cast<int>(launch<8, kMode, kRaw>(
         a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
         *cp, s));
@@ -357,6 +379,148 @@ int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
         a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
         *cp, s));
   }
+}
+
+// Fused GEMM of codes wider than 8 bits (int16): A [M, K], B [K, N],
+// exact f64 sums, the same epilogue. Tiles of at most 8 rows; the staged
+// A slice holds its codes as doubles.
+constexpr int kMaxKSplitWide = 512;
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+fxp_gemm_wide_kernel(const int16_t* __restrict__ A,
+                     const int16_t* __restrict__ B,
+                     const float* __restrict__ scale,
+                     float* __restrict__ out, double* __restrict__ ws,
+                     unsigned* __restrict__ counters, int M, int K, int N,
+                     int kps, int vec, int af, int lv_n, CordicParams cp) {
+  __shared__ double a_s[MT][kMaxKSplitWide];
+  __shared__ double tile[MT][kBlockN];
+  __shared__ int is_last;
+
+  const int m0 = blockIdx.z * MT;
+  const int n0 = blockIdx.x * kBlockN;
+  const int k0 = blockIdx.y * kps;
+  const int k1 = min(K, k0 + kps);
+  const int kn = k1 - k0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < MT * kn; i += kThreads) {
+    const int m = i / kn;
+    const int k = i - m * kn;
+    a_s[m][k] = m0 + m < M
+        ? static_cast<double>(A[static_cast<size_t>(m0 + m) * K + k0 + k])
+        : 0.0;
+  }
+  for (int i = tid; i < MT * kBlockN; i += kThreads) {
+    tile[i / kBlockN][i % kBlockN] = 0.0;
+  }
+  __syncthreads();
+
+  double acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.0;
+  }
+
+  // each warp takes four consecutive k rows per step, eight warps apart
+  const int n = n0 + 4 * lane;
+  for (int kb = k0 + 4 * warp; kb < k1; kb += 4 * kWarps) {
+    double w[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = kb + j;
+      int16_t v[4] = {0, 0, 0, 0};
+      if (k < k1 && n < N) {
+        const int16_t* row = B + static_cast<size_t>(k) * N + n;
+        if (vec) {
+          const uint2 word = __ldg(reinterpret_cast<const uint2*>(row));
+          v[0] = static_cast<int16_t>(word.x & 0xFFFFu);
+          v[1] = static_cast<int16_t>(word.x >> 16);
+          v[2] = static_cast<int16_t>(word.y & 0xFFFFu);
+          v[3] = static_cast<int16_t>(word.y >> 16);
+        } else {
+          for (int c = 0; c < 4; ++c) {
+            if (n + c < N) v[c] = row[c];
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[j][c] = static_cast<double>(v[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (kb + j < k1) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const double a = a_s[m][kb + j - k0];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[m][c] = __fma_rn(a, w[j][c], acc[m][c]);   // exact
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (acc[m][c] != 0.0) atomicAdd(&tile[m][4 * lane + c], acc[m][c]);
+    }
+  }
+  __syncthreads();
+
+  const bool split = gridDim.y > 1;
+  if (split) {
+    for (int i = tid; i < MT * kBlockN; i += kThreads) {
+      const int m = i / kBlockN;
+      const int c = i % kBlockN;
+      if (m0 + m < M && n0 + c < N && tile[m][c] != 0.0) {
+        atomicAdd(&ws[static_cast<size_t>(m0 + m) * N + n0 + c], tile[m][c]);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const unsigned prev =
+          atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
+      is_last = prev == gridDim.y - 1;
+    }
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+  }
+
+  for (int i = tid; i < MT * kBlockN; i += kThreads) {
+    const int m = i / kBlockN;
+    const int c = i % kBlockN;
+    const int row = m0 + m;
+    const int cn = n0 + c;
+    if (row < M && cn < N) {
+      const size_t o = static_cast<size_t>(row) * N + cn;
+      const double total = split ? __ldcg(&ws[o]) : tile[m][c];
+      const float v = __fmul_rn(__double2float_rn(total), scale[cn]);
+      out[o] = apply_af(v, af, cp, lv_n);
+    }
+  }
+}
+
+template <int MT>
+cudaError_t launch_wide(const int16_t* a, const int16_t* b,
+                        const float* scale, float* out, double* ws,
+                        unsigned* counters, int M, int K, int N, int kps,
+                        int vec, int af, int lv_n, const CordicParams& cp,
+                        cudaStream_t stream) {
+  dim3 grid((N + kBlockN - 1) / kBlockN, (K + kps - 1) / kps,
+            (M + MT - 1) / MT);
+  fxp_gemm_wide_kernel<MT><<<grid, kThreads, 0, stream>>>(
+      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
+  return cudaGetLastError();
 }
 
 // Raw products of codes wider than 8 bits: a 32 x 32 output tile per
@@ -443,6 +607,38 @@ extern "C" int fxp_gemm_fused_packed(const int8_t* a, const int8_t* b,
                                      void* stream) {
   return dispatch<kPackedFxP4, false>(a, b, scale, out, ws, counters, 1, M, K,
                                       N, ldb, kps, vec, af, lv_n, cp, stream);
+}
+
+// Packed FxP4 expert banks: b holds nibble bytes [E, K, ldb], N <= 2 * ldb.
+extern "C" int fxp_gemm_fused_batched_packed(const int8_t* a, const int8_t* b,
+                                             const float* scale, float* out,
+                                             int* ws, unsigned* counters,
+                                             int E, int M, int K, int N,
+                                             int ldb, int kps, int vec, int af,
+                                             int lv_n, const CordicParams* cp,
+                                             void* stream) {
+  return dispatch<kPackedBank, false>(a, b, scale, out, ws, counters, E, M, K,
+                                      N, ldb, kps, vec, af, lv_n, cp, stream);
+}
+
+// Codes wider than 8 bits: int16 a [M, K], b [K, N]; ws f64 [M, N] and one
+// counter per tile, zeroed, when K is split (kps < K).
+extern "C" int fxp_gemm_fused_wide(const int16_t* a, const int16_t* b,
+                                   const float* scale, float* out, double* ws,
+                                   unsigned* counters, int M, int K, int N,
+                                   int kps, int vec, int af, int lv_n,
+                                   const CordicParams* cp, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps > kMaxKSplitWide ||
+      (M + 7) / 8 > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 4) {
+    return static_cast<int>(launch_wide<4>(a, b, scale, out, ws, counters, M,
+                                           K, N, kps, vec, af, lv_n, *cp, s));
+  }
+  return static_cast<int>(launch_wide<8>(a, b, scale, out, ws, counters, M, K,
+                                         N, kps, vec, af, lv_n, *cp, s));
 }
 
 // Raw int32 products, no epilogue: int8 codes b [K, N], or with packed = 1

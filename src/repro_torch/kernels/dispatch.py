@@ -17,7 +17,14 @@ the AF result snaps to the policy's AF grid. The kernel masks ragged
 edges, so there is no padding and no slice. `expert_matmul` runs a MoE
 expert bank: the reference's loop of per-expert matmuls on the plain
 backend, one batched launch of the same GEMM kernel on the kernels
-backend, with the same per-expert activation codes and scales.
+backend (int8 or packed FxP4 banks), with the same per-expert activation
+codes and scales.
+
+Quantize-once weights of up to 16 bits take the kernel op's contract on
+both backends: activation codes, the exact integer sum rounded once to
+f32, the folded scale. Past 8 bits the reference differs here: its plain
+backend dequantizes the weight and runs an f32 dot of fake-quantized
+operands, its Pallas backend sums the codes in f32 (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -85,7 +92,7 @@ def _af_on_accumulator(out, af, policy):
 
 @register("matmul", "reference")
 def _matmul_reference(x, w, policy, af=None):
-    """Plain path. Quantize-once weights (<= 8 bits): quantize the
+    """Plain path. Quantize-once weights (<= 16 bits): quantize the
     activation, exact integer product, dequant by the folded scale —
     bit-identical to the kernel path. Float weights: fake-quant operands
     and an f32 product. The optional `af` runs on the accumulator output
@@ -130,8 +137,8 @@ def _matmul_kernels(x, w, policy, af=None):
           else quantize_activation(x, w, policy))
     if not isinstance(xa, QuantizedActivation):
         raise NotImplementedError(
-            "the fxp_gemm kernel path takes codes of <= 8 bits; the fused "
-            "path for >8-bit codes is ROADMAP.md queue 2, item 7")
+            "the fxp_gemm kernel takes codes of <= 16 bits, not "
+            f"{w.fmt_name} weights under {policy.matmul} activations")
     if w.ndim != 2:
         raise ValueError("kernel matmul wants a 2-D (per-layer) weight")
     scale = (xa.scale * w.scale).float().expand(1, w.n)
@@ -206,21 +213,21 @@ def _expert_matmul_kernels(x, w, policy, af=None):
     scale in one pass (a per-expert amax over [E, G*C, K], which is what
     each expert's own per-tensor amax gives: a max does not depend on
     order), the folded [E, 1, N] scales, then the batched GEMM kernel.
-    Float banks and >8-bit formats take the per-expert loop; packed FxP4
-    banks are not ported yet."""
+    Packed FxP4 banks launch the batched kernel's packed mode (the int32
+    words seen as nibble bytes [E, K, 4 * words]). Float banks and >8-bit
+    formats take the per-expert loop (the wide mode, one launch per
+    expert)."""
     fmt_x = (FORMATS[policy.matmul if policy is not None
                      and policy.matmul is not None else w.fmt_name]
              if isinstance(w, QuantizedTensor) else None)
-    if fmt_x is not None and w.packed:
-        raise NotImplementedError(
-            "packed FxP4 expert banks are ROADMAP.md queue 2, item 7")
     if fmt_x is None or w.fmt.bits > 8 or fmt_x.bits > 8 or w.ndim != 3:
         return _expert_loop(_matmul_kernels, x, w, policy, af)
     xe, back = _by_expert(x, w.data.shape[0])
     codes, xs = quantize(xe.float(), fmt_x, axis=(1, 2))
     scale = (xs * w.scale).float()                       # [E, 1, N]
-    out = _fused_gemm(fxp_gemm_fused_batched, codes, w.data, scale, af,
-                      policy)
+    w_codes = w.data.view(torch.int8) if w.packed else w.data
+    out = _fused_gemm(fxp_gemm_fused_batched, codes, w_codes, scale, af,
+                      policy, packed=w.packed)
     return back(out.to(x.dtype))
 
 

@@ -6,24 +6,34 @@ epilogue — the Flex-PE MAC -> AF pipeline in one launch.
 `fxp_gemm_fused` is the wrapper: for CUDA tensors it launches the
 hand-written Hopper kernel (`csrc/fxp_gemm.cu`) or raises; only for CPU
 tensors does it run `fxp_gemm_fused_plain`, the plain PyTorch version of
-the same arithmetic. The int32 product is exact in both (integer sums do
-not depend on order), and the epilogue runs the same f32 operations, so
-the two agree bit for bit. `fxp_gemm_fused_batched` runs one such product
-per MoE expert ([E, M, K] @ [E, K, N]) in one launch of the same kernel;
-its plain version is the loop over experts.
+the same arithmetic. Both take the exact integer sum of the code
+products (integer sums do not depend on order), round it once to f32 and
+run the same f32 epilogue, so the two agree bit for bit.
+`fxp_gemm_fused_batched` runs one such product per MoE expert
+([E, M, K] @ [E, K, N]) in one launch of the same kernel; its plain
+version is the loop over experts.
 
-With `packed=True` the weight is packed FxP4: int8 bytes [K, NB] (the
-int32 words of `core.simd.pack` seen as bytes), byte j holding elements 2j
-(low nibble) and 2j+1 (high), sign-extended; N = scale.numel() <= 2 NB.
+Modes, each its own kernel instantiation (`launches_by_mode` counts them):
+  * int8      — int8 codes (FxP <= 8), an int32 accumulator;
+  * packed    — `packed=True`: the weight is packed FxP4, int8 bytes
+                [K, NB] (the int32 words of `core.simd.pack` seen as
+                bytes), byte j holding elements 2j (low nibble) and 2j+1
+                (high), sign-extended; N = scale.numel() <= 2 NB;
+  * wide      — int16 codes (FxP12/16): each product is exact in int32
+                but their sum is not, so the kernel sums in f64, exact
+                while K * 2^30 < 2^53; the exact sum rounds once to f32;
+  * batched and batched_packed — the expert banks, int8 or packed.
+The reference's Pallas kernel sums codes wider than 8 bits in f32 in
+XLA's order (int32 only under its `wide_exact` bound K * qmax^2 < 2^31,
+where this port equals it bit for bit); the port's exact sum is within
+one f32 rounding per step of the reference's.
 
 `fxp_gemm_codes` and `fxp4_gemm_packed` are the raw code GEMMs: the exact
 int32 product with no epilogue, on int8 or wider codes (the caller owns the
 bound K * qmax^2 < 2^31 past 8 bits), or on packed FxP4 weights.
 
 Replaces src/repro/kernels/fxp_gemm/fxp_gemm.py::fxp_gemm_fused_pallas
-for int8 codes (FxP <= 8) and packed FxP4, ::fxp_gemm_pallas and
-::fxp4_gemm_packed_pallas. The fused path for >8-bit codes is still to be
-ported (ROADMAP.md queue 2, item 7).
+(every mode), ::fxp_gemm_pallas and ::fxp4_gemm_packed_pallas.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ __all__ = ["FUSED_AFS", "fxp_gemm_fused", "fxp_gemm_fused_plain",
            "fxp_gemm_fused_batched", "fxp_gemm_fused_batched_plain",
            "fxp_gemm_codes", "fxp_gemm_codes_plain", "fxp4_gemm_packed",
            "fxp4_gemm_packed_plain", "unpack_nibbles", "int_matmul",
-           "k_split"]
+           "exact_matmul", "k_split", "GEMM_MODES", "reset_launches"]
 
 #: AFs the fused epilogue supports (the Flex-PE Sel_AF set minus softmax).
 FUSED_AFS = KERNEL_AFS
@@ -47,17 +57,28 @@ FUSED_AFS = KERNEL_AFS
 _SMS = 132            # H100 SXM streaming multiprocessors
 _BLOCK_N = 128        # kBlockN in csrc/fxp_gemm.cu
 _MAX_KPS = 1024       # kMaxKSplit in csrc/fxp_gemm.cu
+_MAX_KPS_WIDE = 512   # kMaxKSplitWide in csrc/fxp_gemm.cu
 _PLAIN_COLS = 16384   # column chunk of the plain product (bounds its f64)
 
+#: the fused GEMM's kernel modes, counted per launch
+GEMM_MODES = ("int8", "packed", "wide", "batched", "batched_packed")
 
-def int_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of integer codes in plain PyTorch. The f64
-    product is exact while every partial sum stays below 2^53 (K * 127^2
-    for int8 codes); columns go in chunks to bound the f64 temporaries."""
+
+def exact_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
+                 ) -> torch.Tensor:
+    """The integer product of codes as f64 [M, N] in plain PyTorch: every
+    product and partial sum is an integer below 2^53 (K * 2^30 for int16
+    codes), so it is exact in any order. Columns go in chunks to bound
+    the f64 temporaries."""
     xf = x_codes.to(torch.float64)
     cols = [xf @ w_codes[:, j:j + _PLAIN_COLS].to(torch.float64)
             for j in range(0, w_codes.shape[1], _PLAIN_COLS)]
-    return torch.cat(cols, dim=1).to(torch.int32)
+    return torch.cat(cols, dim=1)
+
+
+def int_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of integer codes (K * qmax^2 < 2^31)."""
+    return exact_matmul(x_codes, w_codes).to(torch.int32)
 
 
 def unpack_nibbles(w_bytes: torch.Tensor, n: Optional[int] = None
@@ -76,12 +97,12 @@ def fxp_gemm_fused_plain(x_codes: torch.Tensor, w_codes: torch.Tensor,
                          scale: torch.Tensor, af: Optional[str] = None,
                          hr_stages: int = 4, lv_stages: int = 5,
                          packed: bool = False) -> torch.Tensor:
-    """Plain version: int32 [M, N] product, times scale [N] in f32, then
-    the optional CORDIC AF. Any integer code dtype; `packed` weights are
-    unpacked first."""
+    """Plain version: the exact integer [M, N] product rounded once to
+    f32, times scale [N] in f32, then the optional CORDIC AF. Codes of up
+    to 16 bits; `packed` weights are unpacked first."""
     if packed:
         w_codes = unpack_nibbles(w_codes, scale.numel())
-    out = int_matmul(x_codes, w_codes).float() * scale.reshape(1, -1)
+    out = exact_matmul(x_codes, w_codes).float() * scale.reshape(1, -1)
     if af is not None:
         out = cordic_af_plain(out, af, hr_stages, lv_stages)
     return out
@@ -90,32 +111,38 @@ def fxp_gemm_fused_plain(x_codes: torch.Tensor, w_codes: torch.Tensor,
 def fxp_gemm_fused_batched_plain(x_codes: torch.Tensor,
                                  w_codes: torch.Tensor, scale: torch.Tensor,
                                  af: Optional[str] = None, hr_stages: int = 4,
-                                 lv_stages: int = 5) -> torch.Tensor:
+                                 lv_stages: int = 5, packed: bool = False
+                                 ) -> torch.Tensor:
     """Plain version of the batched entry: `fxp_gemm_fused_plain` on each
-    expert's [M, K] @ [K, N] with its [N] scale -> f32 [E, M, N]."""
+    expert's [M, K] @ [K, N] (or packed bytes [K, NB]) with its [N] scale
+    -> f32 [E, M, N]."""
+    scale = scale.reshape(x_codes.shape[0], -1)
     return torch.stack([
         fxp_gemm_fused_plain(x_codes[e], w_codes[e], scale[e], af, hr_stages,
-                             lv_stages) for e in range(x_codes.shape[0])])
+                             lv_stages, packed)
+        for e in range(x_codes.shape[0])])
 
 
-def _tiles(m: int, packed: bool) -> tuple[int, int]:
+def _tiles(m: int, packed: bool, wide: bool = False) -> tuple[int, int]:
     """(columns per block, row tiles) of the kernel's grid: 256 columns
     for packed weights, else 128; one tile up to 8 rows, else tiles of 16
-    rows (8 for packed weights)."""
+    rows (8 for packed weights and for the wide kernel)."""
     return ((2 if packed else 1) * _BLOCK_N,
-            1 if m <= 8 else -(-m // (8 if packed else 16)))
+            1 if m <= 8 else -(-m // (8 if packed or wide else 16)))
 
 
 def k_split(m: int, k: int, n: int, experts: int = 1,
-            packed: bool = False) -> int:
+            packed: bool = False, wide: bool = False) -> int:
     """K rows per block: enough blocks to fill the card twice over at
-    decode shapes, at most `_MAX_KPS` rows (the staged A slice), a
-    multiple of 32 (four rows per warp step, eight warps)."""
-    block_n, m_tiles = _tiles(m, packed)
+    decode shapes, at most the staged A slice's rows (`_MAX_KPS`, or
+    `_MAX_KPS_WIDE` for the wide kernel), a multiple of 32 (four rows per
+    warp step, eight warps)."""
+    block_n, m_tiles = _tiles(m, packed, wide)
+    max_kps = _MAX_KPS_WIDE if wide else _MAX_KPS
     tiles = -(-n // block_n) * m_tiles * experts
-    splits = max(-(-k // _MAX_KPS), min(-(-4 * _SMS // tiles), -(-k // 128)))
+    splits = max(-(-k // max_kps), min(-(-4 * _SMS // tiles), -(-k // 128)))
     kps = -(-k // splits)
-    return min(_MAX_KPS, -(-kps // 32) * 32)
+    return min(max_kps, -(-kps // 32) * 32)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -125,20 +152,25 @@ _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                           ctypes.c_int),
                "fxp_gemm_fused_packed": ([_P] * 6 + [_I] * 8 + [_P, _P],
                                          ctypes.c_int),
+               "fxp_gemm_fused_batched_packed": ([_P] * 6 + [_I] * 9
+                                                 + [_P, _P], ctypes.c_int),
+               "fxp_gemm_fused_wide": ([_P] * 6 + [_I] * 7 + [_P, _P],
+                                       ctypes.c_int),
                "fxp_gemm_codes_int8": ([_P] * 5 + [_I] * 7 + [_P],
                                        ctypes.c_int),
                "fxp_gemm_codes_wide": ([_P] * 3 + [_I] * 4 + [_P],
                                        ctypes.c_int)}
 
 
-def _workspace(x_codes, e, m, k, n, packed):
-    """(kps, int32 workspace, semaphore pointer): with split K an int32
-    workspace [E, M, N] and one semaphore per tile, zeroed; one K slice
-    per tile reads neither."""
-    kps = k_split(m, k, n, e, packed)
-    block_n, m_tiles = _tiles(m, packed)
+def _workspace(x_codes, e, m, k, n, packed, wide=False):
+    """(kps, workspace, semaphore pointer): with split K a workspace
+    [E, M, N] (int32; f64 for the wide kernel) and one int32 semaphore
+    per tile, zeroed; one K slice per tile reads neither."""
+    kps = k_split(m, k, n, e, packed, wide)
+    block_n, m_tiles = _tiles(m, packed, wide)
     tiles = -(-n // block_n) * m_tiles * e
-    ws_len = e * m * n + tiles if kps < k else 1
+    words = 2 if wide else 1          # int32 words per workspace entry
+    ws_len = words * e * m * n + tiles if kps < k else 1
     ws = torch.zeros(ws_len, dtype=torch.int32, device=x_codes.device)
     return kps, ws, (ws[ws_len - tiles:] if kps < k else ws).data_ptr()
 
@@ -147,17 +179,19 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(mode):
+    fxp_gemm_fused.launches += 1
+    fxp_gemm_fused.launches_by_mode[mode] += 1
+
+
 def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
             packed=False):
-    """One launch over x [E, M, K], w [E, K, N] (or packed bytes [1, K,
+    """One launch over x [E, M, K], w [E, K, N] (or packed bytes [E, K,
     NB]), scale [E, N] (CUDA, int8 codes, checked by the callers) -> f32
     [E, M, N]: the expert-batched kernel, or for E = 1 without `experts`
     the single-matrix one, int8 or packed."""
     e, m, k = x_codes.shape
     n = scale.numel() // e
-    for t in (w_codes, scale):
-        if t.device != x_codes.device:
-            raise ValueError("operands on different devices")
     x_codes = x_codes.contiguous()
     w_codes = w_codes.contiguous()
     scale = scale.reshape(e, n).to(torch.float32).contiguous()
@@ -170,26 +204,61 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
             out.data_ptr(), ws.data_ptr(), sem)
     tail = (kps, vec, AF_CODE[af], lv_stages,
             ctypes.byref(cordic_params(hr_stages)), _stream(x_codes))
-    if experts:
+    if experts and packed:
+        err = lib.fxp_gemm_fused_batched_packed(*ptrs, e, m, k, n, ldb,
+                                                *tail)
+        mode = "batched_packed"
+    elif experts:
         err = lib.fxp_gemm_fused_batched(*ptrs, e, m, k, n, *tail)
+        mode = "batched"
     elif packed:
         err = lib.fxp_gemm_fused_packed(*ptrs, m, k, n, ldb, *tail)
+        mode = "packed"
     else:
         err = lib.fxp_gemm_fused(*ptrs, m, k, n, *tail)
+        mode = "int8"
     if err != 0:
         raise RuntimeError(f"fxp_gemm_fused launch failed: CUDA error {err}")
-    fxp_gemm_fused.launches += 1
+    _count(mode)
     return out
 
 
-def _check_kernel_operands(x_codes, w_codes):
+def _launch_wide(x_codes, w_codes, scale, af, hr_stages, lv_stages):
+    """One launch of the wide kernel over int16 x [M, K], w [K, N] and
+    scale [N] (CUDA, checked by the caller) -> f32 [M, N]."""
+    m, k = x_codes.shape
+    n = scale.numel()
+    x_codes = x_codes.contiguous()
+    w_codes = w_codes.contiguous()
+    scale = scale.reshape(n).to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
+    kps, ws, sem = _workspace(x_codes, 1, m, k, n, False, wide=True)
+    vec = int(n % 4 == 0 and w_codes.data_ptr() % 8 == 0)
+    err = library("fxp_gemm", _SIGNATURES).fxp_gemm_fused_wide(
+        x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), sem, m, k, n, kps, vec, AF_CODE[af],
+        lv_stages, ctypes.byref(cordic_params(hr_stages)), _stream(x_codes))
+    if err != 0:
+        raise RuntimeError(f"fxp_gemm_fused wide launch failed: CUDA error "
+                           f"{err}")
+    _count("wide")
+    return out
+
+
+_KERNEL_CODES = (torch.int8, torch.int16)
+
+
+def _check_kernel_operands(x_codes, w_codes, scale):
     if x_codes.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_codes.device}")
-    if x_codes.dtype != torch.int8 or w_codes.dtype != torch.int8:
+    for t in (w_codes, scale):
+        if t.device != x_codes.device:
+            raise ValueError("operands on different devices")
+    if (x_codes.dtype not in _KERNEL_CODES
+            or w_codes.dtype not in _KERNEL_CODES):
         raise NotImplementedError(
-            "fxp_gemm_fused kernel takes int8 codes (or packed FxP4 bytes) "
-            "only; the fused path for >8-bit codes is ROADMAP.md queue 2, "
-            "item 7")
+            f"fxp_gemm_fused kernel takes int8 or int16 codes (FxP <= 16), "
+            f"not {x_codes.dtype} and {w_codes.dtype}")
 
 
 def _check_packed(w_bytes, n):
@@ -202,8 +271,9 @@ def fxp_gemm_fused(x_codes: torch.Tensor, w_codes: torch.Tensor,
                    scale: torch.Tensor, af: Optional[str] = None,
                    hr_stages: int = 4, lv_stages: int = 5,
                    packed: bool = False) -> torch.Tensor:
-    """x_codes int8 [M, K] @ w_codes int8 [K, N] -> f32 [M, N] =
-    AF(acc * scale[N]); with `packed`, w_codes is packed FxP4 bytes
+    """x_codes [M, K] @ w_codes [K, N] -> f32 [M, N] = AF(acc * scale[N]),
+    on int8 codes, or int16 codes (the wide mode; an int8 operand beside
+    an int16 one is widened); with `packed`, w_codes is packed FxP4 bytes
     [K, NB] and N = scale.numel(). CUDA tensors launch the kernel; CPU
     tensors run the plain version."""
     if af is not None and af not in FUSED_AFS:
@@ -221,37 +291,61 @@ def fxp_gemm_fused(x_codes: torch.Tensor, w_codes: torch.Tensor,
     if x_codes.device.type == "cpu":
         return fxp_gemm_fused_plain(x_codes, w_codes, scale, af, hr_stages,
                                     lv_stages, packed)
-    _check_kernel_operands(x_codes, w_codes)
+    _check_kernel_operands(x_codes, w_codes, scale)
+    if x_codes.dtype == torch.int16 or w_codes.dtype == torch.int16:
+        if packed:
+            raise ValueError("packed weights hold FxP4 codes; the activation "
+                             "codes must be int8")
+        return _launch_wide(x_codes.to(torch.int16), w_codes.to(torch.int16),
+                            scale, af, hr_stages, lv_stages)
     return _launch(x_codes[None], w_codes[None], scale, af, hr_stages,
                    lv_stages, experts=False, packed=packed)[0]
 
 
-fxp_gemm_fused.launches = 0
+def reset_launches():
+    """Set `fxp_gemm_fused`'s launch counts (the total and each mode's)
+    to 0."""
+    fxp_gemm_fused.launches = 0
+    fxp_gemm_fused.launches_by_mode = dict.fromkeys(GEMM_MODES, 0)
+
+
+reset_launches()
 
 
 def fxp_gemm_fused_batched(x_codes: torch.Tensor, w_codes: torch.Tensor,
                            scale: torch.Tensor, af: Optional[str] = None,
-                           hr_stages: int = 4, lv_stages: int = 5
-                           ) -> torch.Tensor:
+                           hr_stages: int = 4, lv_stages: int = 5,
+                           packed: bool = False) -> torch.Tensor:
     """Per expert e: x_codes int8 [E, M, K][e] @ w_codes int8 [E, K, N][e]
     -> f32 [E, M, N], times scale [E, N] (or [E, 1, N]), then the optional
-    AF. CUDA tensors launch the kernel once for all experts (counted on
-    `fxp_gemm_fused.launches`); CPU tensors run the plain loop."""
+    AF; with `packed`, w_codes is packed FxP4 bytes [E, K, NB] and
+    N = scale.numel() / E <= 2 NB. CUDA tensors launch the kernel once for
+    all experts (counted on `fxp_gemm_fused.launches`); CPU tensors run
+    the plain loop. Banks of >8-bit codes have no batched kernel (the
+    dispatch runs them per expert on the wide mode)."""
     if af is not None and af not in FUSED_AFS:
         raise ValueError(f"unsupported fused af {af!r}")
     e, m, k = x_codes.shape
-    if (w_codes.dim() != 3 or w_codes.shape[:2] != (e, k)
-            or scale.numel() != e * w_codes.shape[2]):
+    if w_codes.dim() != 3 or w_codes.shape[:2] != (e, k):
         raise ValueError(f"shape mismatch: x {tuple(x_codes.shape)}, "
-                         f"w {tuple(w_codes.shape)}, scale "
+                         f"w {tuple(w_codes.shape)}")
+    n = scale.numel() // e
+    if packed:
+        _check_packed(w_codes[0], n)
+    elif scale.numel() != e * w_codes.shape[2]:
+        raise ValueError(f"shape mismatch: w {tuple(w_codes.shape)}, scale "
                          f"{tuple(scale.shape)}")
-    scale = scale.reshape(e, -1)
+    scale = scale.reshape(e, n)
     if x_codes.device.type == "cpu":
         return fxp_gemm_fused_batched_plain(x_codes, w_codes, scale, af,
-                                            hr_stages, lv_stages)
-    _check_kernel_operands(x_codes, w_codes)
+                                            hr_stages, lv_stages, packed)
+    _check_kernel_operands(x_codes, w_codes, scale)
+    if x_codes.dtype != torch.int8 or w_codes.dtype != torch.int8:
+        raise NotImplementedError(
+            "the batched kernel takes int8 codes (or packed FxP4 bytes); "
+            "banks of >8-bit codes run per expert on the wide mode")
     return _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages,
-                   experts=True)
+                   experts=True, packed=packed)
 
 
 # ---------------------------------------------------------------------------

@@ -127,6 +127,20 @@ class ServingEngine:
     def paged(self) -> bool:
         return self.ex.paged
 
+    @property
+    def load(self) -> int:
+        """Live requests on this engine: occupied slots + its own pending
+        queue (what the router's least-loaded placement balances)."""
+        return (sum(s is not None for s in self.sched.slots)
+                + len(self.sched.pending))
+
+    def prefix_peek(self, keys) -> int:
+        """How many leading chain-keyed prompt blocks this engine's prefix
+        cache holds: 0, as the port has no prefix cache yet (the router's
+        affinity probe)."""
+        del keys
+        return 0
+
     # -- request lifecycle ---------------------------------------------------
 
     def submit(self, request: Request) -> int:

@@ -18,7 +18,10 @@ packed-FxP4 GEMM and the raw code GEMMs are bit-equal (exact int32 sums);
 the integer attention's dots are exact, but its softmax sums and
 exponentiates in another order than torch's, and a p x v_scale code that
 flips with that moves the output by one v step times the row scale: it
-is held within 1% of the output's range."""
+is held within 1% of the output's range. The GEMM's wide mode (int16
+codes) sums exactly in f64 and rounds once to f32, as its plain version
+does: bit-equal, with and without its AF; its packed expert-bank mode is
+bit-equal to the per-expert loop of the packed plain version."""
 import numpy as np
 import pytest
 import torch
@@ -37,7 +40,7 @@ from repro_torch.core.fxp import FORMATS, quantize
 from repro_torch.kernels.fxp_gemm.fxp_gemm import (
     FUSED_AFS, fxp4_gemm_packed, fxp4_gemm_packed_plain, fxp_gemm_codes,
     fxp_gemm_codes_plain, fxp_gemm_fused, fxp_gemm_fused_batched,
-    fxp_gemm_fused_plain)
+    fxp_gemm_fused_batched_plain, fxp_gemm_fused_plain)
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_float, paged_attention_float_plain, paged_attention_int,
     paged_attention_int_plain, scores_in_scratch)
@@ -213,10 +216,84 @@ def test_paged_attention_int_kernel_matches_plain(cuda, long_rows):
 
 
 def test_unported_paths_raise_on_cuda(cuda):
-    x = torch.zeros((2, 16), dtype=torch.int16, device=cuda)
-    w = torch.zeros((16, 8), dtype=torch.int16, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
+    """Codes wider than 16 bits have no kernel (their f64 sums would not
+    be exact), and banks of int16 codes no batched one (the dispatch runs
+    them per expert): both raise on the card, never fall back."""
+    x = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    w = torch.zeros((16, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="int8 or int16"):
         fxp_gemm_fused(x, w, torch.ones(8, device=cuda))
+    xb = torch.zeros((2, 3, 16), dtype=torch.int16, device=cuda)
+    wb = torch.zeros((2, 16, 8), dtype=torch.int16, device=cuda)
+    with pytest.raises(NotImplementedError, match="per expert"):
+        fxp_gemm_fused_batched(xb, wb, torch.ones((2, 8), device=cuda))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 5120, 5120), (4, 5120, 1024),
+                                   (4, 5120, 13824), (4, 13824, 5120),
+                                   (4, 5120, 152064), (16, 5120, 5120),
+                                   (13, 1030, 130), (3, 96, 1001)])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_wide_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, af):
+    """FxP16 codes in int16 at Qwen2.5-14B's decode and prefill shapes,
+    and ragged M, K and N (N 130 and 1001 take the byte loads): the exact
+    f64 sum rounded once to f32 on both sides, bit-equal with and without
+    the fused SiLU."""
+    rng = np.random.default_rng(m * 31 + n)
+    x = torch.from_numpy(rng.integers(-32767, 32768, (m, k),
+                                      dtype=np.int16)).to(cuda)
+    w = torch.from_numpy(rng.integers(-32767, 32768, (k, n),
+                                      dtype=np.int16)).to(cuda)
+    scale = torch.from_numpy((rng.random(n) * 1e-9).astype(np.float32)
+                             ).to(cuda)
+    before = (fxp_gemm_fused.launches,
+              fxp_gemm_fused.launches_by_mode["wide"])
+    got = fxp_gemm_fused(x, w, scale, af=af)
+    assert (fxp_gemm_fused.launches,
+            fxp_gemm_fused.launches_by_mode["wide"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(got, fxp_gemm_fused_plain(x, w, scale, af=af))
+    # FxP12 codes under the reference's wide_exact bound, and an int8
+    # operand beside an int16 one (widened)
+    x12 = torch.clamp(x, -2047, 2047)[:, :512]
+    w12 = torch.clamp(w, -2047, 2047)[:512]
+    assert torch.equal(fxp_gemm_fused(x12, w12, scale, af=af),
+                       fxp_gemm_fused_plain(x12, w12, scale, af=af))
+    x8 = torch.clamp(x, -127, 127).to(torch.int8)
+    assert torch.equal(fxp_gemm_fused(x8, w, scale, af=af),
+                       fxp_gemm_fused_plain(x8, w, scale, af=af))
+
+
+@pytest.mark.parametrize("e,m,k,n", [(64, 4, 2048, 1408), (64, 4, 1408, 2048),
+                                     (64, 16, 2048, 1408), (5, 3, 256, 130),
+                                     (3, 40, 96, 64)])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_packed_batched_gemm_kernel_bit_equal_to_plain(cuda, e, m, k, n, af):
+    """Packed FxP4 expert banks [E, K, N/2] bytes in one launch, at
+    DeepSeekMoE-16B's decode and prefill banks and at ragged shapes;
+    expert 1's queue is empty and every queue is half filled, as a
+    dropless bank's are: bit-equal to the per-expert packed plain loop."""
+    rng = np.random.default_rng(e * 100 + m + k)
+    x = rng.integers(-7, 8, (e, m, k), dtype=np.int8)
+    x[:, (m + 1) // 2:] = 0
+    x[1] = 0
+    x = torch.from_numpy(x).to(cuda)
+    nb = -(-n // 2)
+    w = torch.from_numpy(rng.integers(-128, 128, (e, k, nb),
+                                      dtype=np.int8)).to(cuda)
+    scale = torch.from_numpy((rng.random((e, 1, n)) * 1e-2
+                              ).astype(np.float32)).to(cuda)
+    before = (fxp_gemm_fused.launches,
+              fxp_gemm_fused.launches_by_mode["batched_packed"])
+    got = fxp_gemm_fused_batched(x, w, scale, af=af, packed=True)
+    assert (fxp_gemm_fused.launches,
+            fxp_gemm_fused.launches_by_mode["batched_packed"]) == (
+                before[0] + 1, before[1] + 1)
+    want = fxp_gemm_fused_batched_plain(x, w, scale, af=af, packed=True)
+    assert torch.equal(got, want)
+    for i in (0, e - 1):
+        assert torch.equal(got[i], fxp_gemm_fused(x[i], w[i], scale[i],
+                                                  af=af, packed=True))
 
 
 @pytest.mark.parametrize("e,m,k,n", [(5, 3, 256, 130), (4, 24, 1030, 384),
@@ -308,3 +385,45 @@ def test_moe_layer_kernels_bit_equal_to_plain_backend(cuda):
     assert torch.equal(
         dispatch.expert_matmul(xe, bp["w1"], pol, backend="kernels"),
         dispatch.expert_matmul(xe, bp["w1"], pol, backend="reference"))
+
+
+@pytest.mark.parametrize("name", ["edge4", "flexpe-fxp16"])
+def test_model_step_kernels_bit_equal_to_plain_backend(cuda, name):
+    """Reduced DeepSeekMoE-16B under edge4 (packed FxP4 expert banks on
+    the packed batched mode, one launch per bank) and reduced Qwen2.5-14B
+    under FxP16 (every GEMM on the wide mode): a prefill block and a
+    decode step through the kernels give the plain backend's logits bit
+    for bit."""
+    from repro_torch.models import model as M
+    arch = "deepseek_moe_16b" if name == "edge4" else "qwen2_5_14b"
+    cfg = get_config(arch).reduced()
+    pol = PrecisionPolicy.from_name(name)
+    params = quantize_params(M.init_params(cfg, 0, device=cuda), pol.matmul)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 5), device=cuda, generator=gen)
+    logits = {}
+    for backend in ("kernels", "reference"):
+        bpol = PrecisionPolicy.from_name(name, backend=backend)
+        cache = M.init_cache(cfg, 2, 16, bpol, kv_block_size=4, device=cuda)
+        cache["block_tables"][:, :4] = torch.arange(
+            8, device=cuda, dtype=torch.int32).reshape(2, 4)
+        modes = dict(fxp_gemm_fused.launches_by_mode)
+        out = []
+        for toks in (tokens, tokens[:, :1]):
+            lg, cache = M.decode_step(cfg, params, cache, toks, policy=bpol,
+                                      last_only=True)
+            out.append(lg)
+        logits[backend] = out
+        ran = {m: n - modes[m]
+               for m, n in fxp_gemm_fused.launches_by_mode.items()
+               if n != modes[m]}
+        if backend == "kernels":
+            want = ({"packed", "batched_packed"} if name == "edge4"
+                    else {"wide"})
+            assert set(ran) == want, ran
+            if name == "edge4":     # three routed banks per layer and step
+                assert ran["batched_packed"] == 2 * 3 * cfg.n_layers
+        else:
+            assert not ran
+    for a, b in zip(logits["kernels"], logits["reference"]):
+        assert torch.equal(a, b)

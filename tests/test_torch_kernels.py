@@ -130,19 +130,33 @@ def test_shared_activation_quantization_is_bit_identical(backend, af):
 
 
 def test_gemm_kernels_raise_on_unported_code_paths():
-    """What the kernels backend still refuses (ROADMAP.md queue 2, item
-    7): the fused GEMM on >8-bit codes, and packed FxP4 expert banks."""
-    wide = tquantize_tensor(torch.ones((16, 8)), "fxp16")
-    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
-        tdispatch.matmul(torch.zeros((2, 16)), wide,
-                         TPolicy.flexpe(16, backend="kernels"),
-                         backend="kernels")
+    """What the kernels backend still refuses: the fused GEMM on codes
+    wider than 16 bits (FxP24/32, whose products an f64 sum would not hold
+    exactly), as a matrix and as an expert bank. FxP16 weights (the wide
+    mode) and packed FxP4 expert banks (the packed batched mode) run."""
+    for fmt in ("fxp24", "fxp32"):
+        wide = tquantize_tensor(torch.ones((16, 8)), fmt)
+        with pytest.raises(NotImplementedError, match="<= 16 bits"):
+            tdispatch.matmul(torch.zeros((2, 16)), wide,
+                             TPolicy.flexpe(int(fmt[3:]), backend="kernels"),
+                             backend="kernels")
+        bank = tquantize_tensor(torch.ones((3, 16, 8)), fmt)
+        with pytest.raises(NotImplementedError, match="<= 16 bits"):
+            tdispatch.expert_matmul(
+                torch.zeros((1, 3, 2, 16)), bank,
+                TPolicy.flexpe(int(fmt[3:]), backend="kernels"),
+                backend="kernels")
+    w16 = tquantize_tensor(torch.ones((16, 8)), "fxp16")
+    out = tdispatch.matmul(torch.ones((2, 16)), w16,
+                           TPolicy.flexpe(16, backend="kernels"),
+                           backend="kernels")
+    torch.testing.assert_close(out, torch.full((2, 8), 16.0))
     bank = tquantize_tensor(torch.ones((3, 16, 8)), "fxp4")
     assert bank.packed and bank.ndim == 3
-    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
-        tdispatch.expert_matmul(torch.zeros((1, 3, 2, 16)), bank,
-                                TPolicy.edge4(backend="kernels"),
-                                backend="kernels")
+    out = tdispatch.expert_matmul(torch.ones((1, 3, 2, 16)), bank,
+                                  TPolicy.edge4(backend="kernels"),
+                                  backend="kernels")
+    torch.testing.assert_close(out, torch.full((1, 3, 2, 8), 16.0))
 
 
 # ---------------------------------------------------------------------------
