@@ -10,16 +10,17 @@ Phases, one line each, any failure exits non-zero before the last line:
                 at the main paths' shapes, with its time, the plain
                 version's time and its bound: the GEMM (bit-equal) at the
                 dense projections, on int8, on packed FxP4 weights and on
-                FxP16 codes in int16 (the wide mode, beside torch.matmul of
-                the codes in f32), and, batched over 64 experts, at the MoE
-                banks, int8 and packed FxP4; the raw code
-                GEMMs (bit-equal; int8 beside torch._int_mm, int16, packed
-                FxP4); the float attention (within 1%) at g 5 and g 1, and
-                at long rows whose score row lives in a global scratch
-                row; the integer attention (within 1%) at g 5, short and
-                long rows; the CORDIC AF (bit-equal) at the MoE expert
-                activations; the CORDIC softmax (bit-equal) at the
-                router's rows and a wide row;
+                FxP16 codes in int16 (the wide mode, on the tensor cores,
+                beside torch.matmul of the codes in f32; also at codes at
+                the ends of int16), and, batched over 64 experts, at the
+                MoE banks, int8 and packed FxP4; the raw code GEMMs
+                (bit-equal; int8 beside torch._int_mm and int16, both on
+                the tensor cores, packed FxP4); the float attention
+                (within 1%) at g 5 and g 1, and at long rows whose score
+                row lives in a global scratch row; the integer attention
+                (within 1%) at g 5, short and long rows; the CORDIC AF
+                (bit-equal) at the MoE expert activations; the CORDIC
+                softmax (bit-equal) at the router's rows and a wide row;
   4. check    — reduced Qwen2.5-14B (under FxP8, edge4 and integer
                 attention) and reduced DeepSeekMoE-16B (FxP8 and edge4),
                 each served through the kernels and through the plain path
@@ -123,35 +124,52 @@ def matching(records: dict, match):
     return sum(c for c, _ in sel), sum(ms for _, ms in sel)
 
 
-def device_ms(fn, iters: int, match: str | None = None, tries: int = 3):
-    """Mean device time per call of `fn()` from the profiler's CUDA kernel
-    records: the kernels whose name contains `match` (one launch per
-    call), or every kernel the call launches. The profiler now and then
-    loses kernel records; a window that holds fewer than `iters` records
-    of `match` is measured again, up to `tries` windows. None when no
-    window holds them all, or the profiler records no device time."""
-    fn()
-    torch.cuda.synchronize()
+def profile_window(fn, iters: int) -> dict:
+    """{record name: (count, device ms)} of `iters` calls of `fn()` under
+    the profiler. The profiler delivers a few records late, into its next
+    session: a throwaway session first takes those of earlier windows."""
     act = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act):
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_records(prof)
+
+
+def device_ms(fn, iters: int, match: str | None = None, tries: int = 3):
+    """(mean device time per call of `fn()` from the profiler's CUDA
+    kernel records, records of `match` the last window held): the
+    kernels whose name contains `match` (one launch per call), or every
+    kernel the call launches. The profiler now and then delivers records
+    late, into its next session, or loses them; each window follows a
+    throwaway session that takes the late records of earlier ones, and a
+    window that holds fewer than `iters` records of `match` is measured
+    again, up to `tries` windows. The time is None when no window holds
+    them all, or the profiler records no device time."""
+    fn()
     for _ in range(tries):
-        with torch.profiler.profile(activities=act) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        count, total = matching(device_records(prof), match)
-        if match is None or count == iters:
-            return total / iters if total > 0 else None
-        print(f"profiler: {count} records of {match} for {iters} launches; "
+        held, total = matching(profile_window(fn, iters), match)
+        if match is None or held == iters:
+            return (total / iters if total > 0 else None), held
+        print(f"profiler: {held} records of {match} for {iters} launches; "
               "measuring again", flush=True)
-    return None
+    return None, held
 
 
 TIMING = {"source": "profiler"}     # set to "cuda events" on fallback
 
 
-def timed(fn, iters: int, match: str | None = None) -> float:
-    """Device time per call (profiler), else the CUDA-event time."""
-    ms = device_ms(fn, iters, match)
+def timed(fn, iters: int, match: str | None = None,
+          window: dict | None = None) -> float:
+    """Device time per call (profiler), else the CUDA-event time.
+    `window` takes the kernel records the last profiler window held
+    ("held", of "iters" calls; fewer held means the CUDA-event time)."""
+    ms, held = device_ms(fn, iters, match)
+    if window is not None:
+        window.update(held=held, iters=iters)
     if ms is None:
         TIMING["source"] = "cuda events"
         return cuda_ms(fn, iters)
@@ -219,14 +237,15 @@ def gemm_phase(dev, gen, packed=False):
                 fail(f"{label} {m}x{k}x{n}+{af}: max |err| {err} > 1 ulp "
                      f"({ulp})")
         worst = max(worst, err)
-        ms = timed(run, 20, "fxp_gemm_fused_kernel")
+        win = {}
+        ms = timed(run, 20, "fxp_gemm_fused_kernel", win)
         call_ms = cuda_ms(run, 20)
         pms = timed(plain, 3)
         nbytes = m * k + w.numel() + 4 * n + 4 * m * n
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS_PER_S)
         rows.append(dict(m=m, k=k, n=n, af=af, ms=ms, plain_ms=pms,
                          bound_ms=bms, bound_by=by, max_abs_err=err,
-                         call_ms=call_ms))
+                         call_ms=call_ms, **win))
         print(f"kernel {label} M={m} K={k} N={n} af={af}: "
               f"{ms:.4f} ms on the device, {call_ms:.4f} ms per wrapper "
               f"call (plain {pms:.4f} ms, bound {bms:.4f} ms by "
@@ -240,7 +259,10 @@ def code_gemm_phase(dev, gen):
     torch._int_mm (one PyTorch call for the same int32 product), packed
     FxP4 weights, and FxP12 codes in int16 at K 512 (inside the bound
     K * qmax^2 < 2^31 the caller owns); each bit-equal to its plain
-    version. -> {kernel name: row}."""
+    version. The kernel's time counts its own records; `call_device_ms`
+    every device record of a wrapper call (with the zeroed split-K
+    workspace).
+    -> {kernel name: row}."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp4_gemm_packed, fxp4_gemm_packed_plain, fxp_gemm_codes,
         fxp_gemm_codes_plain)
@@ -250,22 +272,23 @@ def code_gemm_phase(dev, gen):
         return torch.randint(-q, q + 1, shape, generator=gen, device=dev,
                              dtype=dtype)
     cases = [("fxp_gemm_codes", "int8", fxp_gemm_codes, fxp_gemm_codes_plain,
-              codes((m, k), 127), codes((k, n), 127)),
+              codes((m, k), 127), codes((k, n), 127), "fxp_gemm_tc_kernel"),
              ("fxp4_gemm_packed", "FxP4 x packed nibbles", fxp4_gemm_packed,
               fxp4_gemm_packed_plain, codes((m, k), 7), codes((k, n // 2),
-                                                              127)),
-             ("fxp_gemm_codes", "int16 FxP12, K 512", fxp_gemm_codes,
+                                                              127),
+              "fxp_gemm_fused_kernel"),
+             ("fxp_gemm_codes_int16", "int16 FxP12, K 512", fxp_gemm_codes,
               fxp_gemm_codes_plain, codes((m, 512), 2047, torch.int16),
-              codes((512, n), 2047, torch.int16))]
+              codes((512, n), 2047, torch.int16), "fxp_gemm_tc_kernel")]
     rows = {}
-    for name, what, fn, plain, x, w in cases:
+    for name, what, fn, plain, x, w, record in cases:
         got, ref = fn(x, w), plain(x, w)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             fail(f"{name} ({what}): not bit-equal to plain")
-        record = ("gemm_codes_wide_kernel" if x.dtype == torch.int16
-                  else "fxp_gemm_fused_kernel")
-        ms = timed(lambda: fn(x, w), 20, record)
+        win = {}
+        ms = timed(lambda: fn(x, w), 20, record, win)
+        call_ms = timed(lambda: fn(x, w), 20)
         pms = timed(lambda: plain(x, w), 3)
         kk = x.shape[1]
         nbytes = x.numel() * x.element_size() + w.numel() * w.element_size()
@@ -275,16 +298,17 @@ def code_gemm_phase(dev, gen):
         else:           # no published int16 rate: the bytes bound alone
             bms, by = bound_ms(nbytes, 0.0, INT8_OPS_PER_S)
         lib_ms, lib_note = None, "none"
-        if name == "fxp_gemm_codes" and x.dtype == torch.int8:
+        if name == "fxp_gemm_codes":
             lib_ms, lib_note = library_int_mm(x, w, ref)
         print(f"kernel {name} ({what}) M={m} K={kk} N={n}: {ms:.4f} ms on "
-              f"the device (plain {pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"the device, {call_ms:.4f} ms of device records per wrapper "
+              f"call (plain {pms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f}% of bound; library {lib_note}), "
               "bit-equal", flush=True)
-        rows.setdefault(name, dict(ms=ms, plain_ms=pms, bound_ms=bms,
-                                   bound_by=by, max_abs_err=0.0,
-                                   library_ms=lib_ms,
-                                   shape=f"M={m} K={kk} N={n} {what}"))
+        rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                          max_abs_err=0.0, library_ms=lib_ms,
+                          call_device_ms=call_ms,
+                          shape=f"M={m} K={kk} N={n} {what}", **win)
     return rows
 
 
@@ -348,14 +372,17 @@ def batched_gemm_phase(dev, gen):
 
 
 def wide_gemm_phase(dev, gen):
-    """The fused GEMM's wide mode at the full-width model's shapes on FxP16
-    codes in int16 (the fleet's fxp16 replica), bit-equal to its plain
-    version (both take the exact sum of the code products and round it
-    once to f32), beside torch.matmul of the same codes already cast to
-    f32 (TF32 off): the nearest single PyTorch call, which leaves out the
-    casts, the scale and the AF. The bound counts the int16 operand bytes
-    and the 2 M K N products at the f32 rate outside the tensor cores (the
-    table has no int16 rate)."""
+    """The fused GEMM's wide mode (the tensor-core core's byte planes) at
+    the full-width model's shapes on FxP16 codes in int16 (the fleet's
+    fxp16 replica), bit-equal to its plain version (both take the exact
+    sum of the code products and round it once to f32), beside
+    torch.matmul of the same codes already cast to f32 (TF32 off): the
+    nearest single PyTorch call, which leaves out the casts, the scale and
+    the AF. The bound counts the int16 operand bytes and the 2 M K N
+    products at the f32 rate outside the tensor cores (the table has no
+    int16 rate). Then codes at the ends of int16 at w2's shape (sums near
+    K * 2^30, which a wrong int32 combine of the planes would wrap):
+    bit-equal too."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused, fxp_gemm_fused_plain)
     shapes = [(SLOTS, 5120, 5120, None), (SLOTS, 5120, 1024, None),
@@ -377,7 +404,8 @@ def wide_gemm_phase(dev, gen):
         if not torch.equal(got, ref):
             fail(f"fxp_gemm_fused wide {m}x{k}x{n}+{af}: not bit-equal to "
                  f"plain (max |err| {(got - ref).abs().max().item()})")
-        ms = timed(run, 20, "fxp_gemm_wide_kernel")
+        win = {}
+        ms = timed(run, 20, "fxp_gemm_tc_kernel", win)
         pms = timed(lambda: fxp_gemm_fused_plain(x, w, scale, af=af), 2)
         xf, wf = x.float(), w.float()
         lib_ms = timed(lambda: torch.matmul(xf, wf), 20)
@@ -386,12 +414,32 @@ def wide_gemm_phase(dev, gen):
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, F32_OPS_PER_S)
         rows.append(dict(m=m, k=k, n=n, af=af, ms=ms, plain_ms=pms,
                          bound_ms=bms, bound_by=by, max_abs_err=0.0,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms, **win))
         print(f"kernel fxp_gemm_fused wide (FxP16 int16 codes) M={m} K={k} "
               f"N={n} af={af}: {ms:.4f} ms on the device (plain {pms:.4f} "
               f"ms, bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f}% of "
               f"bound; library torch.matmul on f32 codes {lib_ms:.4f} ms), "
               "bit-equal", flush=True)
+    m, k, n = SLOTS, 13824, 5120
+    x = torch.full((m, k), 32767, dtype=torch.int16, device=dev)
+    x[1] = -32768
+    x[-1, ::3] = -32767
+    w = torch.where(torch.arange(n, device=dev) % 2 == 0, 32767, -32767)
+    w = w.to(torch.int16).expand(k, n).clone()
+    w[:, 2] = -32768
+    scale = torch.full((n,), 2.0 ** -40, device=dev)
+    for af in (None, "silu"):
+        got = fxp_gemm_fused(x, w, scale, af=af)
+        ref = fxp_gemm_fused_plain(x, w, scale, af=af)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"fxp_gemm_fused wide at extreme codes {m}x{k}x{n}+{af}: "
+                 "not bit-equal to plain")
+    ms = timed(lambda: fxp_gemm_fused(x, w, scale), 20, "fxp_gemm_tc_kernel")
+    print(f"kernel fxp_gemm_fused wide at codes +-32767 and -32768 M={m} "
+          f"K={k} N={n}: {ms:.4f} ms on the device, sums up to "
+          f"{k * 32768 ** 2:.3e}, bit-equal with and without silu",
+          flush=True)
     return rows
 
 
@@ -443,7 +491,8 @@ def packed_batched_gemm_phase(dev, gen):
         if not torch.equal(got, ref):
             fail(f"fxp_gemm_fused batched packed E={e} M={m} K={k} N={n}: "
                  "not bit-equal to the per-expert loop")
-        ms = timed(run, 20, "fxp_gemm_fused_kernel")
+        win = {}
+        ms = timed(run, 20, "fxp_gemm_fused_kernel", win)
         pms = timed(plain, 2)
         active = int((x.reshape(e, -1) != 0).any(-1).sum())
         filled = int((x != 0).any(-1).sum())
@@ -458,7 +507,7 @@ def packed_batched_gemm_phase(dev, gen):
               f"{100 * bms / ms:.1f}% of bound), bit-equal", flush=True)
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                         max_abs_err=0.0,
+                         max_abs_err=0.0, **win,
                          shape=f"E={e} M={m} K={k} N={n} ({occupancy})")
     return first
 
@@ -535,9 +584,10 @@ def attention_phase(dev, gen):
             ", scores in global scratch" if scratch else "")
         if err > tol:
             fail(f"paged_attention_float ({body}): max |err| {err} > {tol}")
+        win = {}
         ms = timed(lambda: paged_attention_float(q, k, v, tables, meta,
                                                  **kw), 20,
-                   "paged_attention_kernel")
+                   "paged_attention_kernel", win)
         pms = timed(lambda: paged_attention_float_plain(
             q, k, v, tables, meta, **kw), 3)
         b, kvh, g, hd = q.shape
@@ -555,7 +605,7 @@ def attention_phase(dev, gen):
               f"(tol {tol:.4g})", flush=True)
         if result is None:
             result = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                          max_abs_err=err)
+                          max_abs_err=err, **win)
     return result
 
 
@@ -606,8 +656,9 @@ def attention_int_phase(dev, gen):
                                   else "")
         if err > tol:
             fail(f"paged_attention_int ({body}): max |err| {err} > {tol}")
+        win = {}
         ms = timed(lambda: paged_attention_int(*args, **kw), 20,
-                   "paged_attention_int_kernel")
+                   "paged_attention_int_kernel", win)
         pms = timed(lambda: paged_attention_int_plain(*args, **kw), 3)
         per_pos = 2 * kvh * hd + 8 * kvh
         nbytes = (alloc_blocks * bs * per_pos + qc.numel() + 4 * sq.numel()
@@ -624,7 +675,7 @@ def attention_int_phase(dev, gen):
               f"(tol {tol:.4g})", flush=True)
         if result is None:
             result = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                          max_abs_err=err)
+                          max_abs_err=err, **win)
     return result
 
 
@@ -654,11 +705,12 @@ def cordic_af_phase(dev, gen):
                 fail(f"cordic_af silu {shape} precision {precision}: max "
                      f"|err| {err}, not bit-equal to the plain version")
         n = x.numel()
-        ms = timed(lambda: cordic_af(x, "silu"), 20, "cordic_af_kernel")
+        win = {}
+        ms = timed(lambda: cordic_af(x, "silu"), 20, "cordic_af_kernel", win)
         pms = timed(lambda: cordic_af_plain(x, "silu", 4, 5), 3)
         bms, by = bound_ms(8.0 * n, CORDIC_SILU_OPS * n, F32_OPS_PER_S)
         rows.append(dict(shape=shape, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, max_abs_err=0.0))
+                         bound_by=by, max_abs_err=0.0, **win))
         print(f"kernel cordic_af silu {list(shape)}: {ms:.4f} ms (plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f}% of bound), bit-equal with and "
@@ -689,13 +741,14 @@ def cordic_softmax_phase(dev, gen):
                      "plain version")
         if (raw.sum(-1) - 1).abs().max().item() > n * 2.0 ** -(lv - 1):
             fail(f"cordic_softmax [{m}, {n}]: rows do not sum to 1")
+        win = {}
         ms = timed(lambda: cordic_softmax(x, hr_stages=4, lv_stages=lv), 20,
-                   "cordic_softmax_kernel")
+                   "cordic_softmax_kernel", win)
         pms = timed(lambda: cordic_softmax_plain(x, 4, lv), 3)
         bms, by = bound_ms(8.0 * m * n, CORDIC_SOFTMAX_OPS * m * n,
                            F32_OPS_PER_S)
         rows.append(dict(shape=(m, n), ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, max_abs_err=0.0))
+                         bound_by=by, max_abs_err=0.0, **win))
         print(f"kernel cordic_softmax [{m}, {n}] lv={lv}: {ms:.4f} ms "
               f"(plain {pms:.4f} ms, bound {bms:.6f} ms by {by}), "
               f"bit-equal", flush=True)
@@ -809,7 +862,7 @@ def check_fleet_phase(dev):
 
 #: each kernel wrapper's name and the names of its device records
 RECORDS = {"fxp_gemm_fused": ("fxp_gemm_fused_kernel",
-                              "fxp_gemm_wide_kernel"),
+                              "fxp_gemm_tc_kernel"),
            "paged_attention_float": "paged_attention_kernel",
            "cordic_af": "cordic_af_kernel",
            "cordic_softmax": "cordic_softmax_kernel",
@@ -1111,7 +1164,9 @@ def kernel_entry(name, source, replaces, row, launches, path=None,
                  counter=None, **extra):
     """One kernel's line: `launches` counted over the serve run of `path`
     (architecture/policy) on the wrapper's counter `counter` (default:
-    `name`); None for a kernel no serving path runs."""
+    `name`); None for a kernel no serving path runs. `held` of `iters`:
+    the kernel records the last profiler window of `ms` held (fewer than
+    `iters`: `ms` is the CUDA-event time)."""
     counter = counter or name
     return dict({"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
@@ -1120,7 +1175,8 @@ def kernel_entry(name, source, replaces, row, launches, path=None,
                  "ms": row["ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms"),
-                 "timing": TIMING["source"], "path": path,
+                 "timing": TIMING["source"], "held": row["held"],
+                 "iters": row["iters"], "path": path,
                  "launches_by_path": {p: n.get(counter, 0)
                                       for p, n in launches.items()}},
                 **extra)
@@ -1233,7 +1289,13 @@ def main():
         kernel_entry("fxp_gemm_codes", gemm_src, f"{gemm_ref}:111",
                      code_rows["fxp_gemm_codes"], launches,
                      shape=code_rows["fxp_gemm_codes"]["shape"],
-                     on_path=False),
+                     call_device_ms=code_rows["fxp_gemm_codes"][
+                         "call_device_ms"], on_path=False),
+        kernel_entry("fxp_gemm_codes_int16", gemm_src, f"{gemm_ref}:111",
+                     code_rows["fxp_gemm_codes_int16"], launches,
+                     shape=code_rows["fxp_gemm_codes_int16"]["shape"],
+                     call_device_ms=code_rows["fxp_gemm_codes_int16"][
+                         "call_device_ms"], on_path=False),
         kernel_entry("fxp4_gemm_packed", gemm_src, f"{gemm_ref}:138",
                      code_rows["fxp4_gemm_packed"], launches,
                      shape=code_rows["fxp4_gemm_packed"]["shape"],

@@ -51,32 +51,71 @@
 //  * Packed FxP4 expert banks (a fourth instantiation): the expert bank's
 //    grid and zero-row skip over the packed walk, B [E, K, ldb] bytes.
 //
-// Codes wider than 8 bits (FxP12/16 in int16; fxp_gemm_wide_kernel, its
-// own kernel, so the int8 body stays as it is): a product of two int16
-// codes is at most 2^30, exact in int32, but a sum of two is not. The
-// kernel accumulates in f64 instead, which holds every partial sum of
-// integer products exactly while K * 2^30 < 2^53 (K up to 8M): every
-// order gives the exact integer sum, which is rounded once to f32
-// (round to nearest) before the scale. The plain version computes the
-// same exact sum, so the two agree bit for bit, and under the reference's
-// wide_exact bound (K * qmax^2 < 2^31, its int32 accumulator) they equal
-// the reference bit for bit too. Past that bound the reference sums in
-// f32 in XLA's order, within one f32 rounding per step of the exact sum.
-// Each lane loads 4 int16 columns (8 bytes) of a row, converts them once
-// and runs MT f64 FMAs per column; K is split across blocks as for int8,
-// with an f64 workspace (atomic adds of integers below 2^53 are exact in
-// any order).
+// The tensor-core core (namespace tc, fxp_gemm_tc_kernel) runs the raw
+// int8 code GEMM and every GEMM of codes wider than 8 bits (FxP12/16 in
+// int16): the fused GEMM's wide mode and the raw int16 code GEMM.
+//  * What bounds it: at decode, and at the raw GEMM's 32 rows, each weight
+//    code is used at most 32 times, far below the ~590 int8 operations per
+//    byte at which the tensor cores would take over from the memory, so
+//    reading B once bounds it. A __dp4a walk on the CUDA cores cannot
+//    reach that bound (M 32 x 5120 x 5120 needs 210 M dp4a, ~14 us at 64
+//    a clock per SM, against 7.8 us for B's bytes), nor can sums of int16
+//    products in f64, at the CUDA cores' low f64 rate.
+//  * mma.sync m16n8k32 on s8/u8 operands with int32 accumulators, the
+//    operands swapped: the weight's columns are the MMA's 16 rows and the
+//    activation rows its 8 columns, so 4 decode rows pad half of a tile.
+//  * Byte planes: an int16 code c is h * 256 + l, with a signed high byte
+//    h = c >> 8 in [-128, 127] and an unsigned low byte l = c & 255. Four
+//    products per tile, hh (s8.s8), hl (s8.u8), lh (u8.s8) and ll
+//    (u8.u8), the middle two into one accumulator, combine exactly in
+//    int64: (hh << 16) + ((hl + lh) << 8) + ll. Each int32 partial is
+//    exact while a block's K slice is at most kMaxKSplitWide = 32768 rows
+//    (2 * 128 * 255 * 32768 < 2^31). The fused mode rounds the exact sum
+//    once to f32 (__ll2float_rn) before the int8 mode's epilogue:
+//    bit-equal to the plain version's exact f64 sum while K * 2^30 < 2^53,
+//    and to the reference under its wide_exact bound (K * qmax^2 < 2^31;
+//    past it the reference sums in f32 in XLA's order, within one f32
+//    rounding per step of the exact sum). The raw int16 GEMM writes the
+//    low 32 bits: the wrapping int32 sum of the reference's int32 dot.
+//  * The quantize-once [K, N] layout stays. B streams through a ring of
+//    four stages in shared memory (128 k rows of 128 bytes: 128 int8 or
+//    64 int16 columns, with the activation slice beside it), filled by
+//    cp.async.cg 16-byte copies whose chunks are XOR-swizzled so that a
+//    warp's loads hit distinct banks; each thread's copy addresses are
+//    worked out once, before the k loop. A lane reads 8 columns of 8 k
+//    rows and transposes them in registers (transpose4, after __byte_perm
+//    splits int16 codes into planes) into k-contiguous fragments. A warp
+//    takes 64 columns and its own k32 steps of each stage (for int16
+//    codes all 64 columns of the block), so every activation code is split
+//    once per block.
+//  * K is split across blocks to fill the SMs at decode's few column
+//    tiles, up to two blocks per SM (more would wait for a second wave):
+//    the warps' partial tiles are summed in shared memory, each block adds
+//    its tile into a workspace with atomics (int32; int64 for int16
+//    codes, whose unsigned long long atomics wrap exactly for signed
+//    values), and the last block of a tile, counted by a semaphore,
+//    applies the epilogue. The epilogue is bound by latency, not by
+//    bandwidth: each thread owns one column (its scale read before the k
+//    loop) and issues all its loads before its first store. At the raw
+//    GEMM's 32 rows (240 blocks) streaming B takes ~10 us and the split's
+//    tail (the adds, the semaphore, the last block's read and write) ~5.
 //
 // Raw code GEMMs (src/repro/kernels/fxp_gemm/fxp_gemm.py, fxp_gemm_pallas
-// and fxp4_gemm_packed_pallas) are the same walk without the epilogue:
-// the int32 sums are written as they are. Codes wider than 8 bits take a
-// plain tiled int32 multiply-add (gemm_codes_wide_kernel); as in the
-// reference, the caller owns the overflow-free bound K * qmax^2 < 2^31.
-// Not yet: wgmma / mma.sync tensor cores and TMA (they need a k-major
-// weight layout or an in-shared-memory transpose).
+// and fxp4_gemm_packed_pallas) write the int32 sums as they are: int8 and
+// int16 codes on the tensor-core core, packed FxP4 weights on the __dp4a
+// walk's raw mode, int32 codes on a plain tiled int32 multiply-add
+// (gemm_codes_wide_kernel). As in the reference, the caller owns the
+// overflow-free bound K * qmax^2 < 2^31 past 8 bits.
+// Not yet: wgmma and TMA (at M <= 32 these shapes are bound by bytes, far
+// below mma.sync's integer rate); a balanced (stream-K) split of K, so
+// that 240 blocks do not leave a fifth of the 132 SMs idle for the second
+// half of the k loop; bulk asynchronous reductions of the split's tiles;
+// and the int8 fused, packed and expert-bank modes on the tensor-core
+// core.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "cordic.cuh"
 
@@ -381,158 +420,506 @@ int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
   }
 }
 
-// Fused GEMM of codes wider than 8 bits (int16): A [M, K], B [K, N],
-// exact f64 sums, the same epilogue. Tiles of at most 8 rows; the staged
-// A slice holds its codes as doubles.
-constexpr int kMaxKSplitWide = 512;
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-fxp_gemm_wide_kernel(const int16_t* __restrict__ A,
-                     const int16_t* __restrict__ B,
-                     const float* __restrict__ scale,
-                     float* __restrict__ out, double* __restrict__ ws,
-                     unsigned* __restrict__ counters, int M, int K, int N,
-                     int kps, int vec, int af, int lv_n, CordicParams cp) {
-  __shared__ double a_s[MT][kMaxKSplitWide];
-  __shared__ double tile[MT][kBlockN];
-  __shared__ int is_last;
+// ---------------------------------------------------------------------------
+// The tensor-core core: byte planes on mma.sync m16n8k32 (s8/u8)
+// ---------------------------------------------------------------------------
+namespace tc {
 
-  const int m0 = blockIdx.z * MT;
-  const int n0 = blockIdx.x * kBlockN;
-  const int k0 = blockIdx.y * kps;
-  const int k1 = min(K, k0 + kps);
-  const int kn = k1 - k0;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+constexpr int kThreads = 128;          // four warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowBytes = 128;         // a stage's weight row: 128 int8 or
+                                       // 64 int16 codes
+constexpr int kBK = 128;               // k rows per stage
+constexpr int kStages = 4;             // the ring of stages
+// K rows per block: each int32 plane partial stays exact
+// (2 * 128 * 255 * 32768 < 2^31)
+constexpr int kMaxKSplitWide = 32768;
 
-  for (int i = tid; i < MT * kn; i += kThreads) {
-    const int m = i / kn;
-    const int k = i - m * kn;
-    a_s[m][k] = m0 + m < M
-        ? static_cast<double>(A[static_cast<size_t>(m0 + m) * K + k0 + k])
-        : 0.0;
+// A block over codes T with MT activation rows: kBN output columns in
+// groups of 64, one group per warp, the warps of a group taking turns
+// over a stage's k32 steps. Shared memory per stage: kBK weight rows of
+// kRowBytes, then MT activation rows of kBK codes (padded by 16 codes,
+// so that a warp's fragment loads hit distinct banks); after the k loop
+// the same bytes hold the warps' partial tiles.
+template <typename T, int MT>
+struct Shape {
+  static constexpr int kBN = kRowBytes / sizeof(T);
+  static constexpr int kGroups = kBN / 64;
+  static constexpr int kKWarps = kWarps / kGroups;     // warps per group
+  static constexpr int kSteps = kBK / (32 * kKWarps);  // k32 steps a warp
+  static_assert(kGroups >= 1 && kWarps % kGroups == 0 && kSteps >= 1 &&
+                    kBK % (32 * kKWarps) == 0,
+                "a stage's k32 steps must divide among a group's warps");
+  static constexpr int kWBytes = kBK * kRowBytes;
+  static constexpr int kAStride = (kBK + 16) * sizeof(T);
+  static constexpr int kStageBytes = kWBytes + MT * kAStride;
+  // int8 codes: one int32 product; int16: the exact int64 plane sum
+  using Acc = typename std::conditional<sizeof(T) == 1, int, long long>::type;
+  // the partial tiles' rows, padded by one so that the warps' writes
+  // spread over the banks
+  static constexpr int kRedStride = kBN + 1;
+  static constexpr int kRedBytes = kKWarps * MT * kRedStride * sizeof(Acc);
+  static constexpr int kSmem = kStages * kStageBytes > kRedBytes
+                                   ? kStages * kStageBytes : kRedBytes;
+};
+
+// Byte offset of byte b of weight row r in a stage: the rows one after the
+// other, each 16-byte chunk XORed with 2 * ((r >> 2) & 3), so that rows
+// 4t + j (t = 0..3), which one load instruction of a warp reads, land in
+// distinct banks.
+__device__ __forceinline__ int w_off(int r, int b) {
+  const int chunk = (b >> 4) ^ (((r >> 2) & 3) << 1);
+  return r * kRowBytes + (chunk << 4) + (b & 15);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// d += a (16 x 32, row-major) * b (32 x 8, column-major), int32
+// accumulators; kSA / kSB: a's / b's bytes are signed (s8) or not (u8)
+template <bool kSA, bool kSB>
+__device__ __forceinline__ void mma_k32(int (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+#define FXP_MMA(TA, TB)                                                     \
+  asm("mma.sync.aligned.m16n8k32.row.col.s32." TA "." TB ".s32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"   \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  if constexpr (kSA && kSB) {
+    FXP_MMA("s8", "s8");
+  } else if constexpr (kSA) {
+    FXP_MMA("s8", "u8");
+  } else if constexpr (kSB) {
+    FXP_MMA("u8", "s8");
+  } else {
+    FXP_MMA("u8", "u8");
   }
-  for (int i = tid; i < MT * kBlockN; i += kThreads) {
-    tile[i / kBlockN][i % kBlockN] = 0.0;
-  }
-  __syncthreads();
+#undef FXP_MMA
+}
 
-  double acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.0;
+// A thread's share of the copies into a stage, fixed over the k loop:
+// 16-byte chunks of weight rows wr + kWRows q (chunk column wc) and of
+// activation rows ar + kARows q (chunk column ac); `issue` copies stage s
+// (k rows k0 + kBK s ..): rows past k1, columns past N and activation rows
+// past M are zero. `vec` bit 0 / bit 1: B's / A's rows are 16-byte aligned
+// (then cp.async copies, else plain loads of single codes).
+template <typename T, int MT>
+struct CopyPlan {
+  using S = Shape<T, MT>;
+  static constexpr int kPer = 16 / sizeof(T);          // codes per chunk
+  static constexpr int kWCols = kRowBytes / 16;
+  static constexpr int kWRows = kThreads / kWCols;     // weight rows a pass
+  static constexpr int kACols = kBK / kPer;
+  static constexpr int kARows = kThreads / kACols;     // activation rows
+  static_assert(kWRows % 4 == 0, "a pass keeps the rows' swizzle");
+
+  const T* A;
+  const T* B;
+  int M, K, N, m0, n0, k0, k1, vec, tid;
+  int wr, wc, ar, ac, wdst, adst;
+  size_t wsrc, asrc;                 // element offsets of stage 0's chunks
+
+  __device__ __forceinline__ CopyPlan(const T* A_, const T* B_, int M_,
+                                      int K_, int N_, int m0_, int n0_,
+                                      int k0_, int k1_, int vec_, int tid_)
+      : A(A_), B(B_), M(M_), K(K_), N(N_), m0(m0_), n0(n0_), k0(k0_),
+        k1(k1_), vec(vec_), tid(tid_), wr(tid_ / kWCols), wc(tid_ % kWCols),
+        ar(tid_ / kACols), ac(tid_ % kACols) {
+    // row wr + kWRows q has row wr's swizzle: (kWRows q >> 2) & 3 == 0
+    wdst = w_off(wr, 16 * wc);
+    adst = S::kWBytes + ar * S::kAStride + 16 * ac;
+    wsrc = static_cast<size_t>(k0 + wr) * N + n0 + wc * kPer;
+    asrc = static_cast<size_t>(m0 + ar) * K + k0 + ac * kPer;
   }
 
-  // each warp takes four consecutive k rows per step, eight warps apart
-  const int n = n0 + 4 * lane;
-  for (int kb = k0 + 4 * warp; kb < k1; kb += 4 * kWarps) {
-    double w[4][4];
+  __device__ __forceinline__ void issue(unsigned char* st, int s) const {
+    const int kb = k0 + s * kBK;
+    if (vec & 1) {
+      const bool col = n0 + wc * kPer < N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kb + j;
-      int16_t v[4] = {0, 0, 0, 0};
-      if (k < k1 && n < N) {
-        const int16_t* row = B + static_cast<size_t>(k) * N + n;
-        if (vec) {
-          const uint2 word = __ldg(reinterpret_cast<const uint2*>(row));
-          v[0] = static_cast<int16_t>(word.x & 0xFFFFu);
-          v[1] = static_cast<int16_t>(word.x >> 16);
-          v[2] = static_cast<int16_t>(word.y & 0xFFFFu);
-          v[3] = static_cast<int16_t>(word.y >> 16);
-        } else {
-          for (int c = 0; c < 4; ++c) {
-            if (n + c < N) v[c] = row[c];
-          }
+      for (int q = 0; q < kBK / kWRows; ++q) {
+        const bool ok = col && kb + wr + kWRows * q < k1;
+        cp_async16(st + wdst + kWRows * q * kRowBytes,
+                   B + (ok ? wsrc + static_cast<size_t>(s * kBK + kWRows * q)
+                                        * N : 0), ok);
+      }
+    } else {
+      for (int i = tid; i < kBK * S::kBN; i += kThreads) {
+        const int r = i / S::kBN;
+        const int c = i - r * S::kBN;
+        const int k = kb + r;
+        const T v = (k < k1 && n0 + c < N)
+            ? B[static_cast<size_t>(k) * N + n0 + c] : T(0);
+        *reinterpret_cast<T*>(st + w_off(r, c * sizeof(T))) = v;
+      }
+    }
+    if (vec & 2) {
+      const bool col = kb + ac * kPer < k1;
+#pragma unroll
+      for (int q = 0; q < (MT + kARows - 1) / kARows; ++q) {
+        const int m = ar + kARows * q;
+        if (MT % kARows == 0 || m < MT) {
+          const bool ok = col && m0 + m < M;
+          cp_async16(st + adst + kARows * q * S::kAStride,
+                     A + (ok ? asrc + static_cast<size_t>(kARows * q) * K +
+                                   s * kBK : 0), ok);
         }
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w[j][c] = static_cast<double>(v[c]);
+    } else {
+      unsigned char* as = st + S::kWBytes;
+      for (int i = tid; i < MT * kBK; i += kThreads) {
+        const int m = i / kBK;
+        const int c = i - m * kBK;
+        const int k = kb + c;
+        const T v = (m0 + m < M && k < k1)
+            ? A[static_cast<size_t>(m0 + m) * K + k] : T(0);
+        *reinterpret_cast<T*>(as + m * S::kAStride + c * sizeof(T)) = v;
+      }
     }
+  }
+};
+
+// Lane (g, t) of a warp whose k rows start at `r0`: rows r0 + 16h + 4t + j
+// (j = 0..3) of columns 8g..8g+7, four int8 codes to a word (x: columns
+// 8g..8g+3, y: 8g+4..8g+7), transposed so that col[h][c] holds rows
+// r0 + 16h + 4t .. +3 of column 8g + c: the A fragment words of MMA rows
+// g (column 8g + 2i) and g + 8 (column 8g + 2i + 1) of tile i = 0..3.
+__device__ __forceinline__ void transpose_rows(const unsigned (&x)[4],
+                                               const unsigned (&y)[4],
+                                               int (&col)[8]) {
+  int cx[4], cy[4];
+  transpose4(x, cx);
+  transpose4(y, cy);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    col[c] = cx[c];
+    col[4 + c] = cy[c];
+  }
+}
+
+// int32 accumulators per lane: a plane (int8 codes: one; int16: hh,
+// hl + lh, ll) x 4 MMA row tiles x NT column tiles x 4
+template <typename T>
+constexpr int kPlanes = sizeof(T) == 1 ? 1 : 3;
+
+// One k32 step of a warp over stage `st`: weight rows r0..r0+31 of
+// columns c0 + 8g .. c0 + 8g + 7 for lane (g, t), against the same k of
+// the stage's activation rows. MMA tile i's row g is column c0 + 8g + 2i
+// and its row g + 8 column c0 + 8g + 2i + 1; its column n is activation
+// row 8 nt + n. `wl` and `al`: the lane's byte offsets in the stage of
+// row 4t of its columns (swizzled: rows r0 + 16h + 4t + j share row 4t's
+// swizzle) and of activation row g, k 4t.
+template <typename T, int MT>
+__device__ __forceinline__ void k32_step(
+    const unsigned char* st, int r0, int wl, int al,
+    int (&acc)[kPlanes<T>][4][MT / 8][4]) {
+  using S = Shape<T, MT>;
+  constexpr bool kWide = sizeof(T) == 2;
+  constexpr int kP = kWide ? 2 : 1;          // byte planes of a code
+  const unsigned char* w = st + wl + r0 * kRowBytes;
+  // col[p][h][c]: rows r0 + 16h + 4t .. +3 of column c0 + 8g + c, plane p
+  // (int16: 0 the high bytes, 1 the low bytes)
+  int col[kP][2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned x[kP][4], y[kP][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (kb + j < k1) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const double a = a_s[m][kb + j - k0];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[m][c] = __fma_rn(a, w[j][c], acc[m][c]);   // exact
-          }
-        }
+      const unsigned char* row = w + (16 * h + j) * kRowBytes;
+      if constexpr (kWide) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row);
+        x[0][j] = __byte_perm(v.x, v.y, 0x7531);
+        x[kP - 1][j] = __byte_perm(v.x, v.y, 0x6420);
+        y[0][j] = __byte_perm(v.z, v.w, 0x7531);
+        y[kP - 1][j] = __byte_perm(v.z, v.w, 0x6420);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(row);
+        x[0][j] = v.x;
+        y[0][j] = v.y;
       }
     }
-  }
-
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (acc[m][c] != 0.0) atomicAdd(&tile[m][4 * lane + c], acc[m][c]);
-    }
+    for (int p = 0; p < kP; ++p) transpose_rows(x[p], y[p], col[p][h]);
   }
-  __syncthreads();
-
-  const bool split = gridDim.y > 1;
-  if (split) {
-    for (int i = tid; i < MT * kBlockN; i += kThreads) {
-      const int m = i / kBlockN;
-      const int c = i % kBlockN;
-      if (m0 + m < M && n0 + c < N && tile[m][c] != 0.0) {
-        atomicAdd(&ws[static_cast<size_t>(m0 + m) * N + n0 + c], tile[m][c]);
+  const unsigned char* a0 = st + S::kWBytes + al + r0 * sizeof(T);
+#pragma unroll
+  for (int nt = 0; nt < MT / 8; ++nt) {
+    // activation row 8 nt + g, k rows r0 + 4t .. and r0 + 16 + 4t ..
+    const unsigned char* arow = a0 + nt * 8 * S::kAStride;
+    unsigned bh[2], bl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (kWide) {
+        const uint2 v = *reinterpret_cast<const uint2*>(arow + 32 * h);
+        bh[h] = __byte_perm(v.x, v.y, 0x7531);
+        bl[h] = __byte_perm(v.x, v.y, 0x6420);
+      } else {
+        bh[h] = bl[h] = *reinterpret_cast<const unsigned*>(arow + 16 * h);
       }
     }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      const unsigned prev =
-          atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
-      is_last = prev == gridDim.y - 1;
-    }
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-  }
-
-  for (int i = tid; i < MT * kBlockN; i += kThreads) {
-    const int m = i / kBlockN;
-    const int c = i % kBlockN;
-    const int row = m0 + m;
-    const int cn = n0 + c;
-    if (row < M && cn < N) {
-      const size_t o = static_cast<size_t>(row) * N + cn;
-      const double total = split ? __ldcg(&ws[o]) : tile[m][c];
-      const float v = __fmul_rn(__double2float_rn(total), scale[cn]);
-      out[o] = apply_af(v, af, cp, lv_n);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned a[kP][4];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        a[p][0] = static_cast<unsigned>(col[p][0][2 * i]);
+        a[p][1] = static_cast<unsigned>(col[p][0][2 * i + 1]);
+        a[p][2] = static_cast<unsigned>(col[p][1][2 * i]);
+        a[p][3] = static_cast<unsigned>(col[p][1][2 * i + 1]);
+      }
+      mma_k32<true, true>(acc[0][i][nt], a[0], bh[0], bh[1]);
+      if constexpr (kWide) {
+        mma_k32<true, false>(acc[1][i][nt], a[0], bl[0], bl[1]);
+        mma_k32<false, true>(acc[1][i][nt], a[kP - 1], bh[0], bh[1]);
+        mma_k32<false, false>(acc[2][i][nt], a[kP - 1], bl[0], bl[1]);
+      }
     }
   }
 }
 
-template <int MT>
-cudaError_t launch_wide(const int16_t* a, const int16_t* b,
-                        const float* scale, float* out, double* ws,
-                        unsigned* counters, int M, int K, int N, int kps,
-                        int vec, int af, int lv_n, const CordicParams& cp,
-                        cudaStream_t stream) {
-  dim3 grid((N + kBlockN - 1) / kBlockN, (K + kps - 1) / kps,
-            (M + MT - 1) / MT);
-  fxp_gemm_wide_kernel<MT><<<grid, kThreads, 0, stream>>>(
+template <typename T, int MT, bool kRaw>
+__global__ void __launch_bounds__(kThreads)
+fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                   const float* __restrict__ scale, void* __restrict__ out_,
+                   typename Shape<T, MT>::Acc* __restrict__ ws,
+                   unsigned* __restrict__ counters, int M, int K, int N,
+                   int kps, int vec, int af, int lv_n, CordicParams cp) {
+  using S = Shape<T, MT>;
+  using Acc = typename S::Acc;
+  constexpr int kBN = S::kBN;
+  constexpr int NT = MT / 8;                 // MMA column tiles (rows of A)
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+
+  const int n0 = blockIdx.x * kBN;
+  const int k0 = blockIdx.y * kps;
+  const int k1 = min(K, k0 + kps);
+  const int m0 = blockIdx.z * MT;
+  const int steps = (k1 - k0 + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int group = warp % S::kGroups;       // columns 64 group ..
+  const int kwarp = warp / S::kGroups;       // k32 steps kwarp + kKWarps j
+  // the epilogue: thread tid owns column c of the tile, rows
+  // mr + kRowStep j; its scale is read before the k loop
+  constexpr int kRowStep = kThreads / kBN;
+  constexpr int kRows = MT / kRowStep;
+  const int c = tid % kBN;
+  const int mr = tid / kBN;
+  const int cn = n0 + c;
+  float sc = 0.f;
+  if constexpr (!kRaw) {
+    if (cn < N) sc = __ldg(scale + cn);
+  }
+
+  int acc[kPlanes<T>][4][NT][4];
+#pragma unroll
+  for (int p = 0; p < kPlanes<T>; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[p][i][nt][c] = 0;
+
+  const CopyPlan<T, MT> plan(A, B, M, K, N, m0, n0, k0, k1, vec, tid);
+  // the lane's fragment offsets (see k32_step): column c0 + 8g's byte in
+  // row 4t, swizzled, and activation row g at k 4t
+  const int cb = sizeof(T) * (64 * group + 8 * g);
+  const int wl = 4 * t * kRowBytes + ((((cb >> 4) ^ (2 * t))) << 4) +
+                 (cb & 15);
+  const int al = g * S::kAStride + 4 * t * sizeof(T);
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) plan.issue(smem + s * S::kStageBytes, s);
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();          // stage s has landed ...
+    __syncthreads();                       // ... for every thread, and
+                                           // stage s - 1 is consumed
+    const int next = s + kStages - 1;
+    if (next < steps) {
+      plan.issue(smem + (next % kStages) * S::kStageBytes, next);
+    }
+    cp_async_commit();
+    const unsigned char* st = smem + (s % kStages) * S::kStageBytes;
+#pragma unroll
+    for (int j = 0; j < S::kSteps; ++j) {
+      k32_step<T, MT>(st, 32 * (kwarp + S::kKWarps * j), wl, al, acc);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                         // the ring is free
+
+  // the warps' partial tiles [kwarp][MT][kBN] (rows kRedStride apart):
+  // accumulator e of MMA tile i, column tile nt is output column
+  // 64 group + 8g + 2i + (e >> 1), row nt * 8 + 2t + (e & 1)
+  Acc* red = reinterpret_cast<Acc*>(smem);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        Acc v;
+        if constexpr (sizeof(T) == 2) {
+          v = (static_cast<long long>(acc[0][i][nt][e]) << 16) +
+              (static_cast<long long>(acc[1][i][nt][e]) << 8) +
+              static_cast<long long>(acc[2][i][nt][e]);
+        } else {
+          v = acc[0][i][nt][e];
+        }
+        const int m = nt * 8 + 2 * t + (e & 1);
+        red[(kwarp * MT + m) * S::kRedStride + 64 * group + 8 * g + 2 * i +
+            (e >> 1)] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  Acc total[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    total[j] = 0;
+#pragma unroll
+    for (int w = 0; w < S::kKWarps; ++w) {
+      total[j] += red[(w * MT + mr + kRowStep * j) * S::kRedStride + c];
+    }
+  }
+  auto store = [&](int j, Acc v) {
+    const int row = m0 + mr + kRowStep * j;
+    if (row >= M || cn >= N) return;
+    const size_t o = static_cast<size_t>(row) * N + cn;
+    if constexpr (kRaw) {
+      // the low 32 bits: the wrapping int32 sum
+      static_cast<int*>(out_)[o] = static_cast<int>(static_cast<unsigned>(v));
+    } else {
+      const float f = __fmul_rn(__ll2float_rn(v), sc);
+      static_cast<float*>(out_)[o] = apply_af(f, af, cp, lv_n);
+    }
+  };
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) store(j, total[j]);
+    return;
+  }
+  // split K: add the tile into the workspace, then let the last block of
+  // the tile apply the epilogue
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int row = m0 + mr + kRowStep * j;
+    if (row < M && cn < N && total[j] != 0) {
+      Acc* w = ws + static_cast<size_t>(row) * N + cn;
+      if constexpr (sizeof(T) == 2) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(w),
+                  static_cast<unsigned long long>(total[j]));
+      } else {
+        atomicAdd(w, total[j]);
+      }
+    }
+  }
+  // the block's adds, ordered by the barrier, are released to the GPU by
+  // one thread's fence before its semaphore add (and acquired by the last
+  // block's), as CUTLASS's semaphore does
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    const unsigned prev =
+        atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
+    is_last = prev == gridDim.y - 1;
+    if (is_last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (!is_last) return;
+  // every load before the first store: one round trip to the L2
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int row = m0 + mr + kRowStep * j;
+    total[j] = (row < M && cn < N)
+        ? __ldcg(ws + static_cast<size_t>(row) * N + cn) : Acc(0);
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) store(j, total[j]);
+}
+
+template <typename T, int MT, bool kRaw>
+cudaError_t launch(const T* a, const T* b, const float* scale, void* out,
+                   typename Shape<T, MT>::Acc* ws, unsigned* counters, int M,
+                   int K, int N, int kps, int vec, int af, int lv_n,
+                   const CordicParams& cp, cudaStream_t stream) {
+  constexpr int kSmem = Shape<T, MT>::kSmem;
+  constexpr int kBN = Shape<T, MT>::kBN;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fxp_gemm_tc_kernel<T, MT, kRaw>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((N + kBN - 1) / kBN, (K + kps - 1) / kps, (M + MT - 1) / MT);
+  fxp_gemm_tc_kernel<T, MT, kRaw><<<grid, kThreads, kSmem, stream>>>(
       a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
   return cudaGetLastError();
 }
 
-// Raw products of codes wider than 8 bits: a 32 x 32 output tile per
-// block, A and B staged in shared memory 32 k rows at a time, each thread
-// four rows of one column. Unsigned arithmetic wraps as the reference's
-// int32 dot does; inside the caller's bound nothing wraps.
+// Row tiles of 8, 16 or (int8 codes) 32 activation rows: one to four MMA
+// column tiles share each weight fragment.
+template <typename T, bool kRaw>
+int dispatch(const T* a, const T* b, const float* scale, void* out,
+             typename Shape<T, 8>::Acc* ws, unsigned* counters, int M, int K,
+             int N, int kps, int vec, int af, int lv_n, const CordicParams* cp,
+             void* stream) {
+  constexpr int kMaxMT = sizeof(T) == 1 ? 32 : 16;
+  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps % kBK != 0 ||
+      kps > kMaxKSplitWide || (K + kps - 1) / kps > 65535 ||
+      (M + kMaxMT - 1) / kMaxMT > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 8) {
+    return static_cast<int>(launch<T, 8, kRaw>(
+        a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp, s));
+  }
+  if constexpr (kMaxMT == 32) {
+    if (M > 16) {
+      return static_cast<int>(launch<T, 32, kRaw>(
+          a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp,
+          s));
+    }
+  }
+  return static_cast<int>(launch<T, 16, kRaw>(
+      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp, s));
+}
+
+}  // namespace tc
+
+// Raw products of int32 codes: a 32 x 32 output tile per block, A and B
+// staged in shared memory 32 k rows at a time, each thread four rows of
+// one column. Unsigned arithmetic wraps as the reference's int32 dot
+// does; inside the caller's bound nothing wraps.
 constexpr int kWideTile = 32;
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gemm_codes_wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                       int* __restrict__ out, int M, int K, int N) {
+gemm_codes_wide_kernel(const int32_t* __restrict__ A,
+                       const int32_t* __restrict__ B, int* __restrict__ out,
+                       int M, int K, int N) {
   __shared__ int a_t[kWideTile][kWideTile + 1];     // [m][k]
   __shared__ int b_t[kWideTile][kWideTile + 1];     // [k][n]
   const int tx = threadIdx.x & 31;
@@ -545,12 +932,11 @@ gemm_codes_wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
     for (int i = ty; i < kWideTile; i += kWarps) {
       const int m = m0 + i;
       const int k = k0 + tx;
-      a_t[i][tx] = (m < M && k < K)
-          ? static_cast<int>(A[static_cast<size_t>(m) * K + k]) : 0;
+      a_t[i][tx] = (m < M && k < K) ? A[static_cast<size_t>(m) * K + k] : 0;
       const int kk = k0 + i;
       const int nn = n0 + tx;
-      b_t[i][tx] = (kk < K && nn < N)
-          ? static_cast<int>(B[static_cast<size_t>(kk) * N + nn]) : 0;
+      b_t[i][tx] = (kk < K && nn < N) ? B[static_cast<size_t>(kk) * N + nn]
+                                      : 0;
     }
     __syncthreads();
 #pragma unroll 8
@@ -621,28 +1007,23 @@ extern "C" int fxp_gemm_fused_batched_packed(const int8_t* a, const int8_t* b,
                                       N, ldb, kps, vec, af, lv_n, cp, stream);
 }
 
-// Codes wider than 8 bits: int16 a [M, K], b [K, N]; ws f64 [M, N] and one
-// counter per tile, zeroed, when K is split (kps < K).
+// Codes wider than 8 bits on the tensor-core core: int16 a [M, K],
+// b [K, N]; kps a multiple of 128, at most 32768; when K is split
+// (kps < K) ws int64 [M, N] and one counter per tile, zeroed; `vec` bit
+// 0 / 1: b's / a's rows are 16-byte aligned.
 extern "C" int fxp_gemm_fused_wide(const int16_t* a, const int16_t* b,
-                                   const float* scale, float* out, double* ws,
-                                   unsigned* counters, int M, int K, int N,
-                                   int kps, int vec, int af, int lv_n,
-                                   const CordicParams* cp, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps > kMaxKSplitWide ||
-      (M + 7) / 8 > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 4) {
-    return static_cast<int>(launch_wide<4>(a, b, scale, out, ws, counters, M,
-                                           K, N, kps, vec, af, lv_n, *cp, s));
-  }
-  return static_cast<int>(launch_wide<8>(a, b, scale, out, ws, counters, M, K,
-                                         N, kps, vec, af, lv_n, *cp, s));
+                                   const float* scale, float* out,
+                                   long long* ws, unsigned* counters, int M,
+                                   int K, int N, int kps, int vec, int af,
+                                   int lv_n, const CordicParams* cp,
+                                   void* stream) {
+  return tc::dispatch<int16_t, false>(a, b, scale, out, ws, counters, M, K, N,
+                                      kps, vec, af, lv_n, cp, stream);
 }
 
-// Raw int32 products, no epilogue: int8 codes b [K, N], or with packed = 1
-// nibble bytes b [K, ldb].
+// Raw int32 products, no epilogue: int8 codes b [K, N] on the tensor-core
+// core (ws int32, kps and `vec` as for the wide mode), or with packed = 1
+// nibble bytes b [K, ldb] on the __dp4a walk.
 extern "C" int fxp_gemm_codes_int8(const int8_t* a, const int8_t* b, int* out,
                                    int* ws, unsigned* counters, int M, int K,
                                    int N, int ldb, int packed, int kps,
@@ -650,28 +1031,30 @@ extern "C" int fxp_gemm_codes_int8(const int8_t* a, const int8_t* b, int* out,
   return packed
       ? dispatch<kPackedFxP4, true>(a, b, nullptr, out, ws, counters, 1, M, K,
                                     N, ldb, kps, vec, 0, 0, &kNoCordic, stream)
-      : dispatch<kDense, true>(a, b, nullptr, out, ws, counters, 1, M, K, N,
-                               N, kps, vec, 0, 0, &kNoCordic, stream);
+      : tc::dispatch<int8_t, true>(a, b, nullptr, out, ws, counters, M, K, N,
+                                   kps, vec, 0, 0, &kNoCordic, stream);
 }
 
-// Raw int32 products of int16 (elem_bytes 2) or int32 (4) codes.
-extern "C" int fxp_gemm_codes_wide(const void* a, const void* b, int* out,
-                                   int M, int K, int N, int elem_bytes,
-                                   void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || (elem_bytes != 2 && elem_bytes != 4) ||
-      (M + kWideTile - 1) / kWideTile > 65535) {
+// Raw products of int16 codes on the tensor-core core: the low 32 bits of
+// the exact sum (ws int64, as for the wide mode).
+extern "C" int fxp_gemm_codes_int16(const int16_t* a, const int16_t* b,
+                                    int* out, long long* ws,
+                                    unsigned* counters, int M, int K, int N,
+                                    int kps, int vec, void* stream) {
+  return tc::dispatch<int16_t, true>(a, b, nullptr, out, ws, counters, M, K,
+                                     N, kps, vec, 0, 0, &kNoCordic, stream);
+}
+
+// Raw int32 products of int32 codes.
+extern "C" int fxp_gemm_codes_int32(const int32_t* a, const int32_t* b,
+                                    int* out, int M, int K, int N,
+                                    void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || (M + kWideTile - 1) / kWideTile > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((N + kWideTile - 1) / kWideTile, (M + kWideTile - 1) / kWideTile);
-  if (elem_bytes == 2) {
-    gemm_codes_wide_kernel<int16_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const int16_t*>(a), static_cast<const int16_t*>(b), out,
-        M, K, N);
-  } else {
-    gemm_codes_wide_kernel<int32_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const int32_t*>(a), static_cast<const int32_t*>(b), out,
-        M, K, N);
-  }
+  gemm_codes_wide_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a, b, out, M,
+                                                                K, N);
   return static_cast<int>(cudaGetLastError());
 }

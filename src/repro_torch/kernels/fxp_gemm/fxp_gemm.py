@@ -19,10 +19,18 @@ Modes, each its own kernel instantiation (`launches_by_mode` counts them):
                 [K, NB] (the int32 words of `core.simd.pack` seen as
                 bytes), byte j holding elements 2j (low nibble) and 2j+1
                 (high), sign-extended; N = scale.numel() <= 2 NB;
-  * wide      — int16 codes (FxP12/16): each product is exact in int32
-                but their sum is not, so the kernel sums in f64, exact
-                while K * 2^30 < 2^53; the exact sum rounds once to f32;
+  * wide      — int16 codes (FxP12/16) on the tensor-core core: each code
+                splits into a signed high byte and an unsigned low byte,
+                four int8 tensor-core products of the byte planes
+                combine exactly in int64, and the exact sum rounds once to
+                f32 (`byte_plane_matmul` is that arithmetic in plain
+                PyTorch); exact while K * 2^30 < 2^53;
   * batched and batched_packed — the expert banks, int8 or packed.
+The int8, packed and bank modes walk B with `__dp4a` on the CUDA cores;
+the wide mode and the raw int8 and int16 code GEMMs run on `mma.sync`
+tensor-core tiles fed by asynchronous copies (csrc/fxp_gemm.cu says what
+bounds each and what its design does about it). At decode every one of
+them is bound by reading the weight once.
 The reference's Pallas kernel sums codes wider than 8 bits in f32 in
 XLA's order (int32 only under its `wide_exact` bound K * qmax^2 < 2^31,
 where this port equals it bit for bit); the port's exact sum is within
@@ -49,15 +57,20 @@ __all__ = ["FUSED_AFS", "fxp_gemm_fused", "fxp_gemm_fused_plain",
            "fxp_gemm_fused_batched", "fxp_gemm_fused_batched_plain",
            "fxp_gemm_codes", "fxp_gemm_codes_plain", "fxp4_gemm_packed",
            "fxp4_gemm_packed_plain", "unpack_nibbles", "int_matmul",
-           "exact_matmul", "k_split", "GEMM_MODES", "reset_launches"]
+           "exact_matmul", "byte_plane_matmul", "k_split", "GEMM_MODES",
+           "reset_launches"]
 
 #: AFs the fused epilogue supports (the Flex-PE Sel_AF set minus softmax).
 FUSED_AFS = KERNEL_AFS
 
 _SMS = 132            # H100 SXM streaming multiprocessors
-_BLOCK_N = 128        # kBlockN in csrc/fxp_gemm.cu
+_BLOCK_N = 128        # kBlockN in csrc/fxp_gemm.cu (the __dp4a walk)
 _MAX_KPS = 1024       # kMaxKSplit in csrc/fxp_gemm.cu
-_MAX_KPS_WIDE = 512   # kMaxKSplitWide in csrc/fxp_gemm.cu
+_TC_ROW_BYTES = 128   # tc::kRowBytes in csrc/fxp_gemm.cu (the tensor-core
+                      # core): a block's columns, 128 int8 or 64 int16 codes
+_TC_BLOCK_K = 128     # tc::kBK: k rows per stage
+_TC_BLOCKS = 2 * _SMS  # blocks of the core resident at once (two per SM)
+_MAX_KPS_WIDE = 32768  # tc::kMaxKSplitWide: 2 * 128 * 255 * 32768 < 2^31
 _PLAIN_COLS = 16384   # column chunk of the plain product (bounds its f64)
 
 #: the fused GEMM's kernel modes, counted per launch
@@ -79,6 +92,32 @@ def exact_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
 def int_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
     """Exact int32 product of integer codes (K * qmax^2 < 2^31)."""
     return exact_matmul(x_codes, w_codes).to(torch.int32)
+
+
+def byte_plane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
+                      ) -> torch.Tensor:
+    """The tensor-core core's arithmetic on codes of up to 16 bits, in
+    plain PyTorch -> int64 [M, N]: each code c splits into a signed high
+    byte h = c >> 8 and an unsigned low byte l = c & 255; the products hh,
+    hl + lh (one accumulator) and ll are int32 sums, combined exactly in
+    int64 as (hh << 16) + ((hl + lh) << 8) + ll. K goes in slices of the
+    cap `_MAX_KPS_WIDE`, the most rows any int32 accumulator of the kernel
+    sums (its blocks and warps sum smaller slices; exact integer sums do
+    not depend on the cut). For the tests, on CPU tensors (CUDA has no
+    int64 product): no path calls it."""
+    x = x_codes.to(torch.int64)
+    w = w_codes.to(torch.int64)
+    xh, xl, wh, wl = x >> 8, x & 255, w >> 8, w & 255
+
+    def acc32(v):                    # an int32 accumulator's sum
+        return v.to(torch.int32).to(torch.int64)
+    total = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64)
+    for k0 in range(0, x.shape[1], _MAX_KPS_WIDE):
+        ks = slice(k0, k0 + _MAX_KPS_WIDE)
+        a, b, c, d = xh[:, ks], xl[:, ks], wh[ks], wl[ks]
+        total += ((acc32(a @ c) << 16) + (acc32(a @ d + b @ c) << 8)
+                  + acc32(b @ d))
+    return total
 
 
 def unpack_nibbles(w_bytes: torch.Tensor, n: Optional[int] = None
@@ -123,26 +162,40 @@ def fxp_gemm_fused_batched_plain(x_codes: torch.Tensor,
         for e in range(x_codes.shape[0])])
 
 
-def _tiles(m: int, packed: bool, wide: bool = False) -> tuple[int, int]:
-    """(columns per block, row tiles) of the kernel's grid: 256 columns
-    for packed weights, else 128; one tile up to 8 rows, else tiles of 16
-    rows (8 for packed weights and for the wide kernel)."""
+def _tiles(m: int, packed: bool, core=None) -> tuple[int, int]:
+    """(columns per block, row tiles) of a kernel's grid. The __dp4a
+    walk: 256 columns for packed weights, else 128; one tile up to 8
+    rows, else tiles of 16 rows (8 for packed weights). The tensor-core
+    core (`core` the codes' dtype, int8 or int16): 128 bytes of columns
+    (128 int8 or 64 int16 codes); tiles of 8, 16 or 32 rows (16 at most
+    for int16 codes)."""
+    if core is not None:
+        wide = core == torch.int16
+        rows = 8 if m <= 8 else 16 if m <= 16 or wide else 32
+        return _TC_ROW_BYTES // (2 if wide else 1), -(-m // rows)
     return ((2 if packed else 1) * _BLOCK_N,
-            1 if m <= 8 else -(-m // (8 if packed or wide else 16)))
+            1 if m <= 8 else -(-m // (8 if packed else 16)))
 
 
 def k_split(m: int, k: int, n: int, experts: int = 1,
-            packed: bool = False, wide: bool = False) -> int:
-    """K rows per block: enough blocks to fill the card twice over at
-    decode shapes, at most the staged A slice's rows (`_MAX_KPS`, or
-    `_MAX_KPS_WIDE` for the wide kernel), a multiple of 32 (four rows per
-    warp step, eight warps)."""
-    block_n, m_tiles = _tiles(m, packed, wide)
-    max_kps = _MAX_KPS_WIDE if wide else _MAX_KPS
+            packed: bool = False, core=None) -> int:
+    """K rows per block. The __dp4a walk: enough blocks to fill the card
+    four times over at decode shapes, at most the staged A slice's rows
+    (`_MAX_KPS`), a multiple of 32 (four rows per warp step, eight warps).
+    The tensor-core core (`core` as for `_tiles`): as many blocks as fit
+    two to an SM (`_TC_BLOCKS`; a few more would wait for a second wave),
+    at least 256 rows each, at most `_MAX_KPS_WIDE`, a multiple of a
+    stage's 128 rows."""
+    block_n, m_tiles = _tiles(m, packed, core)
     tiles = -(-n // block_n) * m_tiles * experts
-    splits = max(-(-k // max_kps), min(-(-4 * _SMS // tiles), -(-k // 128)))
+    if core is not None:
+        splits = max(-(-k // _MAX_KPS_WIDE),
+                     min(max(1, _TC_BLOCKS // tiles), -(-k // 256)))
+        kps = -(-k // splits)
+        return -(-kps // _TC_BLOCK_K) * _TC_BLOCK_K
+    splits = max(-(-k // _MAX_KPS), min(-(-4 * _SMS // tiles), -(-k // 128)))
     kps = -(-k // splits)
-    return min(max_kps, -(-kps // 32) * 32)
+    return min(_MAX_KPS, -(-kps // 32) * 32)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -158,18 +211,23 @@ _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                        ctypes.c_int),
                "fxp_gemm_codes_int8": ([_P] * 5 + [_I] * 7 + [_P],
                                        ctypes.c_int),
-               "fxp_gemm_codes_wide": ([_P] * 3 + [_I] * 4 + [_P],
-                                       ctypes.c_int)}
+               "fxp_gemm_codes_int16": ([_P] * 5 + [_I] * 5 + [_P],
+                                        ctypes.c_int),
+               "fxp_gemm_codes_int32": ([_P] * 3 + [_I] * 3 + [_P],
+                                        ctypes.c_int)}
 
 
-def _workspace(x_codes, e, m, k, n, packed, wide=False):
+def _workspace(x_codes, e, m, k, n, packed, core=None):
     """(kps, workspace, semaphore pointer): with split K a workspace
-    [E, M, N] (int32; f64 for the wide kernel) and one int32 semaphore
-    per tile, zeroed; one K slice per tile reads neither."""
-    kps = k_split(m, k, n, e, packed, wide)
-    block_n, m_tiles = _tiles(m, packed, wide)
+    [E, M, N] (int32; int64 for int16 codes on the tensor-core core) and
+    one int32 semaphore per tile, zeroed; one K slice per tile reads
+    neither."""
+    kps = k_split(m, k, n, e, packed, core)
+    if core is not None:
+        assert kps <= _MAX_KPS_WIDE, "a block's int32 plane sums would overflow"
+    block_n, m_tiles = _tiles(m, packed, core)
     tiles = -(-n // block_n) * m_tiles * e
-    words = 2 if wide else 1          # int32 words per workspace entry
+    words = 2 if core == torch.int16 else 1   # int32 words per entry
     ws_len = words * e * m * n + tiles if kps < k else 1
     ws = torch.zeros(ws_len, dtype=torch.int32, device=x_codes.device)
     return kps, ws, (ws[ws_len - tiles:] if kps < k else ws).data_ptr()
@@ -223,17 +281,27 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
     return out
 
 
+def _tc_vec(x_codes, w_codes):
+    """The tensor-core core's `vec` bits: 1 when the weight's rows, 2 when
+    the activation's rows are 16-byte aligned (copied in 16-byte chunks;
+    otherwise code by code)."""
+    e = x_codes.element_size()
+    return (int(w_codes.shape[1] * e % 16 == 0 and w_codes.data_ptr() % 16 == 0)
+            | 2 * int(x_codes.shape[1] * e % 16 == 0
+                      and x_codes.data_ptr() % 16 == 0))
+
+
 def _launch_wide(x_codes, w_codes, scale, af, hr_stages, lv_stages):
-    """One launch of the wide kernel over int16 x [M, K], w [K, N] and
-    scale [N] (CUDA, checked by the caller) -> f32 [M, N]."""
+    """One launch of the tensor-core core over int16 x [M, K], w [K, N]
+    and scale [N] (CUDA, checked by the caller) -> f32 [M, N]."""
     m, k = x_codes.shape
     n = scale.numel()
     x_codes = x_codes.contiguous()
     w_codes = w_codes.contiguous()
     scale = scale.reshape(n).to(torch.float32).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
-    kps, ws, sem = _workspace(x_codes, 1, m, k, n, False, wide=True)
-    vec = int(n % 4 == 0 and w_codes.data_ptr() % 8 == 0)
+    kps, ws, sem = _workspace(x_codes, 1, m, k, n, False, torch.int16)
+    vec = _tc_vec(x_codes, w_codes)
     err = library("fxp_gemm", _SIGNATURES).fxp_gemm_fused_wide(
         x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
         out.data_ptr(), ws.data_ptr(), sem, m, k, n, kps, vec, AF_CODE[af],
@@ -367,17 +435,28 @@ def fxp4_gemm_packed_plain(x_codes: torch.Tensor, w_packed: torch.Tensor
     return int_matmul(x_codes, unpack_nibbles(w_packed))
 
 
-def _raw_int8(x_codes, w_codes, n, packed):
+def _raw_code_gemm(x_codes, w_codes, n, packed=False):
+    """One launch of a raw code GEMM over x [M, K] and w [K, N] (or
+    packed bytes [K, N/2]) -> int32 [M, N]: int8 and int16 codes on the
+    tensor-core core, packed weights on the __dp4a walk's raw mode."""
     m, k = x_codes.shape
     x_codes, w_codes = x_codes.contiguous(), w_codes.contiguous()
     out = torch.empty((m, n), dtype=torch.int32, device=x_codes.device)
-    kps, ws, sem = _workspace(x_codes, 1, m, k, n, packed)
-    ldb = w_codes.shape[1]
-    vec = int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0)
-    err = library("fxp_gemm", _SIGNATURES).fxp_gemm_codes_int8(
-        x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), sem, m, k, n, ldb, int(packed), kps, vec,
-        _stream(x_codes))
+    core = None if packed else x_codes.dtype
+    kps, ws, sem = _workspace(x_codes, 1, m, k, n, packed, core)
+    lib = library("fxp_gemm", _SIGNATURES)
+    ptrs = (x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), sem)
+    if core == torch.int16:
+        err = lib.fxp_gemm_codes_int16(*ptrs, m, k, n, kps,
+                                       _tc_vec(x_codes, w_codes),
+                                       _stream(x_codes))
+    else:
+        ldb = w_codes.shape[1]
+        vec = (int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0) if packed
+               else _tc_vec(x_codes, w_codes))
+        err = lib.fxp_gemm_codes_int8(*ptrs, m, k, n, ldb, int(packed), kps,
+                                      vec, _stream(x_codes))
     if err != 0:
         raise RuntimeError(f"code GEMM launch failed: CUDA error {err}")
     return out
@@ -399,9 +478,10 @@ def _check_raw(x_codes, w_codes, k_w):
 def fxp_gemm_codes(x_codes: torch.Tensor, w_codes: torch.Tensor
                    ) -> torch.Tensor:
     """Raw code GEMM: int [M, K] @ int [K, N] -> int32 [M, N], exact
-    int32 sums. int8 codes on both sides take the __dp4a walk; int16 or
-    int32 codes (the wider of the two dtypes for both) a plain int32
-    multiply-add, exact while K * qmax^2 < 2^31, which the caller owns.
+    int32 sums. Both operands take the wider of the two dtypes: int8 and
+    int16 codes run on the tensor-core core (int16 as byte planes, the low
+    32 bits of the exact sum), int32 codes a plain int32 multiply-add;
+    past 8 bits exact while K * qmax^2 < 2^31, which the caller owns.
     CUDA tensors launch a kernel; CPU tensors run the plain version."""
     _check_raw(x_codes, w_codes, w_codes.shape[0])
     if x_codes.device.type == "cpu":
@@ -411,16 +491,16 @@ def fxp_gemm_codes(x_codes: torch.Tensor, w_codes: torch.Tensor
             f"code GEMM of {x_codes.dtype} and {w_codes.dtype}: integer "
             "codes of 8, 16 or 32 bits only")
     m, n = x_codes.shape[0], w_codes.shape[1]
-    if x_codes.dtype == w_codes.dtype == torch.int8:
-        out = _raw_int8(x_codes, w_codes, n, packed=False)
+    wide = max(x_codes.dtype, w_codes.dtype, key=_WIDE.index)
+    xw = x_codes.to(wide).contiguous()
+    ww = w_codes.to(wide).contiguous()
+    if wide != torch.int32:
+        out = _raw_code_gemm(xw, ww, n)
     else:
-        wide = max(x_codes.dtype, w_codes.dtype, key=_WIDE.index)
-        xw = x_codes.to(wide).contiguous()
-        ww = w_codes.to(wide).contiguous()
         out = torch.empty((m, n), dtype=torch.int32, device=x_codes.device)
-        err = library("fxp_gemm", _SIGNATURES).fxp_gemm_codes_wide(
+        err = library("fxp_gemm", _SIGNATURES).fxp_gemm_codes_int32(
             xw.data_ptr(), ww.data_ptr(), out.data_ptr(), m,
-            x_codes.shape[1], n, xw.element_size(), _stream(xw))
+            x_codes.shape[1], n, _stream(xw))
         if err != 0:
             raise RuntimeError(f"code GEMM launch failed: CUDA error {err}")
     fxp_gemm_codes.launches += 1
@@ -442,7 +522,8 @@ def fxp4_gemm_packed(x_codes: torch.Tensor, w_packed: torch.Tensor
     if x_codes.dtype != torch.int8 or w_packed.dtype != torch.int8:
         raise NotImplementedError("packed code GEMM takes int8 codes and "
                                   "int8 nibble bytes")
-    out = _raw_int8(x_codes, w_packed, 2 * w_packed.shape[1], packed=True)
+    out = _raw_code_gemm(x_codes, w_packed, 2 * w_packed.shape[1],
+                         packed=True)
     fxp4_gemm_packed.launches += 1
     return out
 

@@ -19,9 +19,10 @@ the integer attention's dots are exact, but its softmax sums and
 exponentiates in another order than torch's, and a p x v_scale code that
 flips with that moves the output by one v step times the row scale: it
 is held within 1% of the output's range. The GEMM's wide mode (int16
-codes) sums exactly in f64 and rounds once to f32, as its plain version
-does: bit-equal, with and without its AF; its packed expert-bank mode is
-bit-equal to the per-expert loop of the packed plain version."""
+codes, byte planes on the tensor cores) takes the exact integer sum and
+rounds it once to f32, as its plain version does: bit-equal, with and
+without its AF; its packed expert-bank mode is bit-equal to the
+per-expert loop of the packed plain version."""
 import numpy as np
 import pytest
 import torch
@@ -89,12 +90,15 @@ def test_packed_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, nb, af):
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 5120, 512), (5, 1030, 130),
-                                   (17, 96, 64)])
+                                   (17, 96, 64), (32, 5120, 5120),
+                                   (33, 1000, 1000), (64, 2056, 136)])
 def test_code_gemm_kernels_bit_equal_to_plain(cuda, m, k, n):
-    """The raw int32 code GEMMs: int8 codes (the __dp4a walk), FxP12
-    codes in int16 and small int32 codes (the wide kernel, inside the
-    caller's bound K * qmax^2 < 2^31), int8 against int16, and packed
-    FxP4 weights."""
+    """The raw int32 code GEMMs: int8 codes and FxP12 codes in int16 (the
+    tensor-core core; int16 inside the caller's bound K * qmax^2 < 2^31),
+    small int32 codes (the tiled int32 kernel), int8 against int16, and
+    packed FxP4 weights; one to four row tiles of 8 to 32 rows, N not a
+    multiple of 16 (code-by-code copies of int8 rows) and K not a
+    multiple of 32."""
     rng = np.random.default_rng(m + k + n)
 
     def codes(shape, q, dtype):
@@ -229,23 +233,40 @@ def test_unported_paths_raise_on_cuda(cuda):
         fxp_gemm_fused_batched(xb, wb, torch.ones((2, 8), device=cuda))
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 5120, 5120), (4, 5120, 1024),
-                                   (4, 5120, 13824), (4, 13824, 5120),
-                                   (4, 5120, 152064), (16, 5120, 5120),
-                                   (13, 1030, 130), (3, 96, 1001)])
+@pytest.mark.parametrize("m,k,n,ends", [
+    (4, 5120, 5120, False), (4, 5120, 1024, False), (4, 5120, 13824, False),
+    (4, 13824, 5120, False), (4, 5120, 152064, False),
+    (16, 5120, 5120, False), (13, 1030, 130, False), (3, 96, 1001, False),
+    (4, 13824, 5120, True), (16, 13824, 1001, True),
+    (4, 33000, 17000, True)])
 @pytest.mark.parametrize("af", [None, "silu"])
-def test_wide_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, af):
+def test_wide_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, ends, af):
     """FxP16 codes in int16 at Qwen2.5-14B's decode and prefill shapes,
     and ragged M, K and N (N 130 and 1001 take the byte loads): the exact
-    f64 sum rounded once to f32 on both sides, bit-equal with and without
-    the fused SiLU."""
+    integer sum rounded once to f32 on both sides, bit-equal with and
+    without the fused SiLU. `ends`: codes at the ends of int16 (+-32767,
+    -32768), columns of one sign, sums of K * 2^30 that a wrong int32
+    combine of the byte planes would wrap; K 33000 passes a block's
+    32768-row cap with N wide enough that the cap alone splits K (two
+    blocks per column tile, their int64 sums added across blocks)."""
     rng = np.random.default_rng(m * 31 + n)
-    x = torch.from_numpy(rng.integers(-32767, 32768, (m, k),
-                                      dtype=np.int16)).to(cuda)
-    w = torch.from_numpy(rng.integers(-32767, 32768, (k, n),
-                                      dtype=np.int16)).to(cuda)
-    scale = torch.from_numpy((rng.random(n) * 1e-9).astype(np.float32)
-                             ).to(cuda)
+    if ends:
+        x = torch.full((m, k), 32767, dtype=torch.int16, device=cuda)
+        x[1] = -32768
+        x[-1, ::3] = -32767
+        cols = torch.arange(n, device=cuda)
+        w = torch.where(cols % 2 == 0, 32767, -32767).to(torch.int16)
+        w = w.expand(k, n).clone()
+        w[:, 2] = -32768
+        w[::5, 3] = 0
+        scale = torch.full((n,), 2.0 ** -40, device=cuda)
+    else:
+        x = torch.from_numpy(rng.integers(-32767, 32768, (m, k),
+                                          dtype=np.int16)).to(cuda)
+        w = torch.from_numpy(rng.integers(-32767, 32768, (k, n),
+                                          dtype=np.int16)).to(cuda)
+        scale = torch.from_numpy((rng.random(n) * 1e-9).astype(np.float32)
+                                 ).to(cuda)
     before = (fxp_gemm_fused.launches,
               fxp_gemm_fused.launches_by_mode["wide"])
     got = fxp_gemm_fused(x, w, scale, af=af)
