@@ -9,13 +9,14 @@ Phases, one line each, any failure exits non-zero before the last line:
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes, with its time, the plain
                 version's time and its bound: the GEMM (bit-equal) at the
-                dense projections, on int8, on packed FxP4 weights and on
-                FxP16 codes in int16 (the wide mode, on the tensor cores,
-                beside torch.matmul of the codes in f32; also at codes at
-                the ends of int16), and, batched over 64 experts, at the
-                MoE banks, int8 and packed FxP4; the raw code GEMMs
-                (bit-equal; int8 beside torch._int_mm and int16, both on
-                the tensor cores, packed FxP4); the float attention
+                dense projections, on int8 (the __dp4a walk), on packed
+                FxP4 weights and on FxP16 codes in int16 (both on the
+                tensor cores; the wide mode beside torch.matmul of the
+                codes in f32, also at codes at the ends of int16), and,
+                batched over 64 experts, at the MoE banks, int8 (the walk)
+                and packed FxP4 (the tensor cores); the raw code GEMMs
+                (bit-equal, all on the tensor cores: int8 beside
+                torch._int_mm, int16, packed FxP4); the float attention
                 (within 1%) at g 5 and g 1, and at long rows whose score
                 row lives in a global scratch row; the integer attention
                 (within 1%) at g 5, short and long rows; the CORDIC AF
@@ -194,7 +195,9 @@ def gemm_phase(dev, gen, packed=False):
     """The fused GEMM at the full-width model's shapes, on int8 codes or
     (`packed`) on FxP4 codes with nibble-packed weights [K, N/2] bytes,
     whose bytes bound counts half the int8 weight bytes. Packed weights
-    must be bit-equal to the plain version, with the AF too."""
+    must be bit-equal to the plain version, with the AF too. Each mode's
+    time counts its own kernel's records: the __dp4a walk's for int8
+    codes, the tensor-core core's for packed weights."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused, fxp_gemm_fused_plain)
     # (M, K, N, af) of the full-width model
@@ -207,6 +210,7 @@ def gemm_phase(dev, gen, packed=False):
               (16, 5120, 5120, None)]          # a prefill chunk
     qa = 7 if packed else 127
     label = "fxp_gemm_fused packed FxP4" if packed else "fxp_gemm_fused"
+    record = "fxp_gemm_tc_kernel" if packed else "fxp_gemm_fused_kernel"
     rows, worst = [], 0.0
     for m, k, n, af in shapes:
         x = torch.randint(-qa, qa + 1, (m, k), generator=gen, device=dev,
@@ -238,7 +242,7 @@ def gemm_phase(dev, gen, packed=False):
                      f"({ulp})")
         worst = max(worst, err)
         win = {}
-        ms = timed(run, 20, "fxp_gemm_fused_kernel", win)
+        ms = timed(run, 20, record, win)
         call_ms = cuda_ms(run, 20)
         pms = timed(plain, 3)
         nbytes = m * k + w.numel() + 4 * n + 4 * m * n
@@ -276,7 +280,7 @@ def code_gemm_phase(dev, gen):
              ("fxp4_gemm_packed", "FxP4 x packed nibbles", fxp4_gemm_packed,
               fxp4_gemm_packed_plain, codes((m, k), 7), codes((k, n // 2),
                                                               127),
-              "fxp_gemm_fused_kernel"),
+              "fxp_gemm_tc_kernel"),
              ("fxp_gemm_codes_int16", "int16 FxP12, K 512", fxp_gemm_codes,
               fxp_gemm_codes_plain, codes((m, 512), 2047, torch.int16),
               codes((512, n), 2047, torch.int16), "fxp_gemm_tc_kernel")]
@@ -466,8 +470,9 @@ def packed_batched_gemm_phase(dev, gen):
     """The expert-batched entry on packed FxP4 banks (DeepSeekMoE under
     edge4) at the decode and prefill banks, as `batched_gemm_phase`: FxP4
     activation codes, nibble bytes [64, K, N/2]; bit-equal to its plain
-    per-expert loop. The bound counts half a byte per weight of the
-    experts this input routes to. -> the decode w1 bank's row."""
+    per-expert loop, timed on the tensor-core core's records. The bound
+    counts half a byte per weight of the experts this input routes to.
+    -> the decode w1 bank's row."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused_batched, fxp_gemm_fused_batched_plain)
     e, top_k = 64, 6
@@ -492,7 +497,7 @@ def packed_batched_gemm_phase(dev, gen):
             fail(f"fxp_gemm_fused batched packed E={e} M={m} K={k} N={n}: "
                  "not bit-equal to the per-expert loop")
         win = {}
-        ms = timed(run, 20, "fxp_gemm_fused_kernel", win)
+        ms = timed(run, 20, "fxp_gemm_tc_kernel", win)
         pms = timed(plain, 2)
         active = int((x.reshape(e, -1) != 0).any(-1).sum())
         filled = int((x != 0).any(-1).sum())

@@ -2,25 +2,41 @@
 // epilogue, written for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/fxp_gemm/fxp_gemm.py, fxp_gemm_fused_pallas
-// (body _gemm_kernel_fused). Computes
+// (body _gemm_kernel_fused, with _unpack_nibbles for packed weights),
+// fxp_gemm_pallas and fxp4_gemm_packed_pallas. Computes
 //     out[m, n] = AF( float(sum_k A[m, k] * B[k, n]) * scale[n] )
-// with A int8 [M, K] activation codes, B int8 [K, N] weight codes (the
-// quantize-once [K, N] layout, unchanged), scale f32 [N] and an int32
-// accumulator: integer sums are exact in any order, so the result is
-// bit-identical to the plain version for K * 127^2 < 2^31.
+// with A [M, K] activation codes, B [K, N] weight codes (the quantize-once
+// [K, N] layout, unchanged), scale f32 [N] and an exact integer sum:
+// integer sums do not depend on order, so the result is bit-identical to
+// the plain version (for int8 codes while K * 127^2 < 2^31).
 //
-// The batched entry runs E such products in one launch, one per MoE
-// expert: A [E, M, K], B [E, K, N], scale [E, N], out [E, M, N]. The grid's
-// z axis walks (expert, row tile); every expert's blocks compute exactly
-// what the single-matrix launch computes on that expert's operands, so
-// the result is bit-equal to a loop of single launches.
+// Which mode runs where:
+//  * the __dp4a walk (fxp_gemm_fused_kernel): int8 codes, dense
+//    (fxp_gemm_fused) and the MoE expert banks (fxp_gemm_fused_batched:
+//    A [E, M, K], B [E, K, N], scale [E, N], out [E, M, N], the grid's z
+//    axis walking (expert, row tile), one launch for the bank);
+//  * the tensor-core core (tc::fxp_gemm_tc_kernel): packed FxP4 weights,
+//    dense (fxp_gemm_fused_packed) and expert banks
+//    (fxp_gemm_fused_batched_packed); codes wider than 8 bits (FxP12/16
+//    in int16: fxp_gemm_fused_wide); and the raw code GEMMs, which write
+//    the int32 sums with no epilogue (fxp_gemm_codes_int8 on int8 codes
+//    or packed FxP4 weights, fxp_gemm_codes_int16);
+//  * a plain tiled int32 multiply-add (gemm_codes_wide_kernel): raw
+//    int32 codes. As in the reference, the caller owns the overflow-free
+//    bound K * qmax^2 < 2^31 past 8 bits.
 //
-// What bounds it: at decode M is the slot count (4), so every weight byte
-// is used M times — about 2M integer operations per byte, far below the
-// card's ~590 int8 operations per byte of memory bandwidth. The kernel is
-// bound by reading B once (K*N bytes over 3.35 TB/s).
+// What bounds them: at decode M is the slot count (4), so every weight
+// byte is used M times — about 2M integer operations per byte, far below
+// the card's ~590 int8 operations per byte of memory bandwidth. Every
+// mode is bound by reading B once (its bytes over 3.35 TB/s); packed FxP4
+// weights halve those bytes. A __dp4a walk on the CUDA cores cannot reach
+// that bound at the raw GEMM's 32 rows (M 32 x 5120 x 5120 needs 210 M
+// dp4a, ~14 us at 64 a clock per SM, against 7.8 us for B's bytes), nor
+// could its packed mode (a lane's four loads in flight, then the nibbles
+// unpacked on the CUDA cores, a block's A slice staged and its tile
+// reduced with shared-memory atomics over twice the columns).
 //
-// What the design does about it:
+// The walk:
 //  * B streams through once, coalesced: a warp reads 128 consecutive bytes
 //    of a row (4 columns per lane), four rows at a time; four __byte_perm
 //    pairs transpose the 4x4 byte tile so that each column's four k values
@@ -32,38 +48,31 @@
 //    any order), and the last block to arrive at a tile — counted by a
 //    per-tile semaphore — applies the epilogue. One launch, as on the TPU.
 //  * Ragged edges are masked (zero codes contribute nothing), never padded.
-//  * Expert banks only (a second instantiation, so the single-matrix
-//    kernel compiles as before): a row of zero codes adds nothing, so a
-//    block skips the products of the rows its staged A slice holds only
-//    zeros in, and when all its rows are zero, its B loads too. At decode
-//    4 tokens route to at most 24 of 64 experts: the unfilled queue slots
+//  * Expert banks only (a second instantiation, so the dense kernel
+//    compiles as before): a row of zero codes adds nothing, so a block
+//    skips the products of the rows its staged A slice holds only zeros
+//    in, and when all its rows are zero, its B loads too. At decode 4
+//    tokens route to at most 24 of 64 experts: the unfilled queue slots
 //    cost no products, and an expert no token routes to costs no weight
 //    bytes.
-//  * Packed FxP4 weights (a third instantiation, so the int8 entries
-//    compile as before): B holds two codes per byte, byte j of a row's
-//    word holding elements 2j (low nibble) and 2j+1 (high), the lane order
-//    of core.simd.pack. A lane's 32-bit load then carries 8 columns of one
-//    k row; the nibbles are sign-extended in registers to two int8x4 words
-//    (even and odd columns), each transposed and fed to __dp4a as above, so
-//    a warp covers 256 columns and B moves half the int8 bytes. The H100
-//    has no int4 tensor-core rate: unpacking before the product is the
-//    route, as the TPU kernel's _unpack_nibbles is.
-//  * Packed FxP4 expert banks (a fourth instantiation): the expert bank's
-//    grid and zero-row skip over the packed walk, B [E, K, ldb] bytes.
 //
-// The tensor-core core (namespace tc, fxp_gemm_tc_kernel) runs the raw
-// int8 code GEMM and every GEMM of codes wider than 8 bits (FxP12/16 in
-// int16): the fused GEMM's wide mode and the raw int16 code GEMM.
-//  * What bounds it: at decode, and at the raw GEMM's 32 rows, each weight
-//    code is used at most 32 times, far below the ~590 int8 operations per
-//    byte at which the tensor cores would take over from the memory, so
-//    reading B once bounds it. A __dp4a walk on the CUDA cores cannot
-//    reach that bound (M 32 x 5120 x 5120 needs 210 M dp4a, ~14 us at 64
-//    a clock per SM, against 7.8 us for B's bytes), nor can sums of int16
-//    products in f64, at the CUDA cores' low f64 rate.
+// The tensor-core core:
 //  * mma.sync m16n8k32 on s8/u8 operands with int32 accumulators, the
 //    operands swapped: the weight's columns are the MMA's 16 rows and the
 //    activation rows its 8 columns, so 4 decode rows pad half of a tile.
+//    Row tiles of 8, 16 or 32 activation rows (16 at most for int16):
+//    one to four MMA column tiles share each weight fragment, so a
+//    16-row prefill chunk reads B once.
+//  * The quantize-once [K, N] layout stays. B streams through a ring of
+//    four stages in shared memory (128 k rows of 128 bytes: 128 int8, 64
+//    int16 or, packed, 256 FxP4 columns, with the activation slice beside
+//    it), filled by cp.async.cg 16-byte copies whose chunks are
+//    XOR-swizzled so that a warp's loads hit distinct banks; each
+//    thread's copy addresses are worked out once, before the k loop. A
+//    lane reads 8 columns of 8 k rows and transposes them in registers
+//    (transpose4) into k-contiguous fragments. A warp takes 64 columns
+//    and its own k32 steps of each stage (for int16 codes all of them),
+//    so every activation code is split once per block.
 //  * Byte planes: an int16 code c is h * 256 + l, with a signed high byte
 //    h = c >> 8 in [-128, 127] and an unsigned low byte l = c & 255. Four
 //    products per tile, hh (s8.s8), hl (s8.u8), lh (u8.s8) and ll
@@ -77,41 +86,59 @@
 //    past it the reference sums in f32 in XLA's order, within one f32
 //    rounding per step of the exact sum). The raw int16 GEMM writes the
 //    low 32 bits: the wrapping int32 sum of the reference's int32 dot.
-//  * The quantize-once [K, N] layout stays. B streams through a ring of
-//    four stages in shared memory (128 k rows of 128 bytes: 128 int8 or
-//    64 int16 columns, with the activation slice beside it), filled by
-//    cp.async.cg 16-byte copies whose chunks are XOR-swizzled so that a
-//    warp's loads hit distinct banks; each thread's copy addresses are
-//    worked out once, before the k loop. A lane reads 8 columns of 8 k
-//    rows and transposes them in registers (transpose4, after __byte_perm
-//    splits int16 codes into planes) into k-contiguous fragments. A warp
-//    takes 64 columns and its own k32 steps of each stage (for int16
-//    codes all 64 columns of the block), so every activation code is split
-//    once per block.
+//  * Packed FxP4 weights: B holds nibble bytes [K, ldb], N <= 2 * ldb,
+//    byte j of a row holding column 2j in its low nibble and 2j + 1 in
+//    its high one (core.simd.pack's lane order). The H100 has no int4
+//    tensor-core rate, so the nibbles become s8 fragments in registers,
+//    as the TPU kernel's _unpack_nibbles does: a lane's word of a row
+//    holds its 8 columns; one transpose4 of four rows' raw words gives,
+//    per byte, the four k values of a column pair, and each such word
+//    gives its low nibbles (the even column) shifted into the high half
+//    of their bytes and its high nibbles (the odd one) masked in place.
+//    A nibble in a byte's high half is 16 times its code as an s8 (16c
+//    for c in -8..7), so each pair costs two logic operations and the
+//    products sum to 16 times the exact sum, which an arithmetic shift
+//    takes back off exactly before the warps' tiles are summed (at most
+//    16 * 8 * 128 * 32768 = 2^29 in a block's int32 accumulator). The
+//    columns then sit where an int8 lane's do, so the MMAs (s8.s8) and
+//    the map from accumulators to output columns are the int8 codes'.
+//    Over a sign extension to s8 (an xor, an add and an xor per word)
+//    this halves the unpacking; over unsigned nibbles (c + 8 on u8.s8,
+//    then 8 * sum_k a subtracted) it needs no row sums carried through
+//    the K split. A packed block has eight warps, two to each group of
+//    64 of its 256 columns, so that a stage's unpacking is shared as an
+//    int8 block's transposes are and its epilogue owns one column a
+//    thread.
+//  * Expert banks (packed): the grid's z axis walks (expert, row tile),
+//    and A, B, scale, out and the workspace are offset per expert. A block
+//    whose A slice holds only zero codes (an expert no token routes to:
+//    at decode most of the 64) issues no copies and no products; its tile
+//    is zero and it goes straight to its epilogue.
 //  * K is split across blocks to fill the SMs at decode's few column
-//    tiles, up to two blocks per SM (more would wait for a second wave):
+//    tiles, up to two blocks per SM (one for packed weights' 32-row
+//    tiles, whose 256 threads hold over half an SM's registers; more
+//    would wait for a second wave):
 //    the warps' partial tiles are summed in shared memory, each block adds
 //    its tile into a workspace with atomics (int32; int64 for int16
 //    codes, whose unsigned long long atomics wrap exactly for signed
 //    values), and the last block of a tile, counted by a semaphore,
 //    applies the epilogue. The epilogue is bound by latency, not by
-//    bandwidth: each thread owns one column (its scale read before the k
-//    loop) and issues all its loads before its first store. At the raw
-//    GEMM's 32 rows (240 blocks) streaming B takes ~10 us and the split's
-//    tail (the adds, the semaphore, the last block's read and write) ~5.
+//    bandwidth: each thread owns one column, its scale read before the k
+//    loop, and issues all its loads before its first store; the fused
+//    modes then stage the scaled sums in shared memory and apply the AF
+//    in one rolled loop over the tile's rows below M (the CORDIC code
+//    inlined once, not once per element a thread owns). At the raw GEMM's
+//    32 rows (240 blocks) streaming B takes ~10 us and the split's tail
+//    (the adds, the semaphore, the last block's read and write) ~5.
 //
-// Raw code GEMMs (src/repro/kernels/fxp_gemm/fxp_gemm.py, fxp_gemm_pallas
-// and fxp4_gemm_packed_pallas) write the int32 sums as they are: int8 and
-// int16 codes on the tensor-core core, packed FxP4 weights on the __dp4a
-// walk's raw mode, int32 codes on a plain tiled int32 multiply-add
-// (gemm_codes_wide_kernel). As in the reference, the caller owns the
-// overflow-free bound K * qmax^2 < 2^31 past 8 bits.
 // Not yet: wgmma and TMA (at M <= 32 these shapes are bound by bytes, far
 // below mma.sync's integer rate); a balanced (stream-K) split of K, so
 // that 240 blocks do not leave a fifth of the 132 SMs idle for the second
 // half of the k loop; bulk asynchronous reductions of the split's tiles;
-// and the int8 fused, packed and expert-bank modes on the tensor-core
-// core.
+// a dynamic hand-out of a packed bank's routed tiles (at decode a third
+// of its blocks carry all the weight bytes, and the SMs they land on
+// bound the launch); and the int8 fused and int8 expert-bank modes on the
+// tensor-core core.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -123,18 +150,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlockN = 128;       // int8 weights: 32 lanes x 4 columns
+constexpr int kBlockN = 128;       // 32 lanes x 4 columns
 constexpr int kMaxKSplit = 1024;   // K rows per block (A slice in smem)
 
 // what B holds, and how the grid's z axis is read
 constexpr int kDense = 0;          // int8 codes [K, N]
 constexpr int kExpertBank = 1;     // int8 codes [E, K, N], z = (expert, tile)
-constexpr int kPackedFxP4 = 2;     // nibble bytes [K, ldb], N <= 2 * ldb
-constexpr int kPackedBank = 3;     // nibble bytes [E, K, ldb], z as kExpertBank
-
-__host__ __device__ constexpr bool is_packed(int mode) {
-  return mode == kPackedFxP4 || mode == kPackedBank;
-}
 
 // 4x4 byte transpose: word j of `r` holds four columns of row j; column
 // c's result word holds rows 0..3 of column c
@@ -150,27 +171,18 @@ __device__ __forceinline__ void transpose4(const unsigned (&r)[4],
   col[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));
 }
 
-// four nibbles (bits 0-3 of each byte of `w`) sign-extended to four int8
-// bytes: (v ^ 8) - 8 per byte maps 0..7 to 0..7 and 8..15 to -8..-1
-__device__ __forceinline__ unsigned sext_nibbles(unsigned w) {
-  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
-template <int MT, int kMode, bool kRaw>
+template <int MT, int kMode>
 __global__ void __launch_bounds__(kThreads)
 fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
                       const int8_t* __restrict__ B,
                       const float* __restrict__ scale,
-                      void* __restrict__ out_, int* __restrict__ ws,
+                      float* __restrict__ out, int* __restrict__ ws,
                       unsigned* __restrict__ counters, int M, int K, int N,
-                      int ldb, int kps, int vec, int af, int lv_n,
-                      CordicParams cp) {
-  constexpr bool kExperts = kMode == kExpertBank || kMode == kPackedBank;
-  constexpr bool kPacked = is_packed(kMode);
-  constexpr int kBN = kPacked ? 2 * kBlockN : kBlockN;   // block columns
-  constexpr int kC = kBN / 32;                            // lane columns
+                      int kps, int vec, int af, int lv_n, CordicParams cp) {
+  constexpr bool kExperts = kMode == kExpertBank;
+  constexpr int kC = kBlockN / 32;                        // lane columns
   __shared__ int a_s[MT][kMaxKSplit / 4];
-  __shared__ int tile[MT][kBN];
+  __shared__ int tile[MT][kBlockN];
   __shared__ int is_last;
   __shared__ unsigned live;                  // bit m: row m0+m has a code
 
@@ -180,13 +192,13 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     const int m_tiles = (M + MT - 1) / MT;
     const int expert = blockIdx.z / m_tiles;
     A += static_cast<size_t>(expert) * M * K;
-    B += static_cast<size_t>(expert) * K * (kPacked ? ldb : N);
+    B += static_cast<size_t>(expert) * K * N;
     scale += static_cast<size_t>(expert) * N;
-    out_ = static_cast<float*>(out_) + static_cast<size_t>(expert) * M * N;
+    out += static_cast<size_t>(expert) * M * N;
     ws += static_cast<size_t>(expert) * M * N;
     m0 = (blockIdx.z - expert * m_tiles) * MT;
   }
-  const int n0 = blockIdx.x * kBN;
+  const int n0 = blockIdx.x * kBlockN;
   const int k0 = blockIdx.y * kps;
   const int k1 = min(K, k0 + kps);
   const int kw = (k1 - k0 + 3) / 4;          // packed words of this slice
@@ -226,8 +238,8 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     a_s[m][w] = static_cast<int>(packed);
     if (kExperts && packed) rows |= 1u << m;
   }
-  for (int i = tid; i < MT * kBN; i += kThreads) {
-    tile[i / kBN][i % kBN] = 0;
+  for (int i = tid; i < MT * kBlockN; i += kThreads) {
+    tile[i / kBlockN][i % kBlockN] = 0;
   }
   // expert banks: rows of zero codes contribute exact zeros, so skip their
   // products, and the B loads of a slice that has no other rows
@@ -256,30 +268,14 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
       const int k = kb + j;
       unsigned word = 0;
       if (k < k1 && n < N) {
-        if constexpr (kPacked) {
-          // columns n..n+7 are bytes n/2..n/2+3 of the row
-          const int8_t* row = B + static_cast<size_t>(k) * ldb + n / 2;
-          if (vec) {
-            word = __ldg(reinterpret_cast<const unsigned*>(row));
-          } else {
-            for (int c = 0; c < 4; ++c) {
-              if (n / 2 + c < ldb) {
-                word |= static_cast<unsigned>(static_cast<uint8_t>(row[c]))
-                        << (8 * c);
-              }
-            }
-          }
+        const int8_t* row = B + static_cast<size_t>(k) * N;
+        if (vec) {
+          word = __ldg(reinterpret_cast<const unsigned*>(row + n));
         } else {
-          const int8_t* row = B + static_cast<size_t>(k) * N;
-          if (vec) {
-            word = __ldg(reinterpret_cast<const unsigned*>(row + n));
-          } else {
-            for (int c = 0; c < 4; ++c) {
-              if (n + c < N) {
-                word |= static_cast<unsigned>(
-                            static_cast<uint8_t>(row[n + c]))
-                        << (8 * c);
-              }
+          for (int c = 0; c < 4; ++c) {
+            if (n + c < N) {
+              word |= static_cast<unsigned>(static_cast<uint8_t>(row[n + c]))
+                      << (8 * c);
             }
           }
         }
@@ -288,28 +284,7 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     }
     // col[c]: rows kb..kb+3 of lane column c, as four int8 codes
     int col[kC];
-    if constexpr (kPacked) {
-      // low nibbles hold the even columns n+2c, high nibbles the odd ones
-      unsigned lo[4], hi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lo[j] = sext_nibbles(r[j]);
-        hi[j] = sext_nibbles(r[j] >> 4);
-      }
-      int even[4], odd[4];
-      transpose4(lo, even);
-      transpose4(hi, odd);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        col[2 * c] = even[c];
-        col[2 * c + 1] = odd[c];
-      }
-    } else {
-      int four[4];
-      transpose4(r, four);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) col[c] = four[c];
-    }
+    transpose4(r, col);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (!kExperts || (live_rows & (1u << m))) {    // uniform block-wide
@@ -334,9 +309,9 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
   if (split) {
     // add this block's partial tile into the workspace, then let the last
     // block of the tile apply the epilogue
-    for (int i = tid; i < MT * kBN; i += kThreads) {
-      const int m = i / kBN;
-      const int c = i % kBN;
+    for (int i = tid; i < MT * kBlockN; i += kThreads) {
+      const int m = i / kBlockN;
+      const int c = i % kBlockN;
       if (m0 + m < M && n0 + c < N && tile[m][c] != 0) {
         atomicAdd(&ws[static_cast<size_t>(m0 + m) * N + n0 + c], tile[m][c]);
       }
@@ -353,71 +328,57 @@ fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
     __threadfence();
   }
 
-  for (int i = tid; i < MT * kBN; i += kThreads) {
-    const int m = i / kBN;
-    const int c = i % kBN;
+  for (int i = tid; i < MT * kBlockN; i += kThreads) {
+    const int m = i / kBlockN;
+    const int c = i % kBlockN;
     const int row = m0 + m;
     const int cn = n0 + c;
     if (row < M && cn < N) {
       const size_t o = static_cast<size_t>(row) * N + cn;
       const int total = split ? __ldcg(&ws[o]) : tile[m][c];
-      if constexpr (kRaw) {
-        static_cast<int*>(out_)[o] = total;
-      } else {
-        const float v = __fmul_rn(static_cast<float>(total), scale[cn]);
-        static_cast<float*>(out_)[o] = apply_af(v, af, cp, lv_n);
-      }
+      const float v = __fmul_rn(static_cast<float>(total), scale[cn]);
+      out[o] = apply_af(v, af, cp, lv_n);
     }
   }
 }
 
-template <int MT, int kMode, bool kRaw>
+template <int MT, int kMode>
 cudaError_t launch(const int8_t* a, const int8_t* b, const float* scale,
-                   void* out, int* ws, unsigned* counters, int E, int M,
-                   int K, int N, int ldb, int kps, int vec, int af, int lv_n,
+                   float* out, int* ws, unsigned* counters, int E, int M,
+                   int K, int N, int kps, int vec, int af, int lv_n,
                    const CordicParams& cp, cudaStream_t stream) {
-  constexpr int kBN = is_packed(kMode) ? 2 * kBlockN : kBlockN;
   const int splits = (K + kps - 1) / kps;
-  dim3 grid((N + kBN - 1) / kBN, splits, E * ((M + MT - 1) / MT));
-  fxp_gemm_fused_kernel<MT, kMode, kRaw><<<grid, kThreads, 0, stream>>>(
-      a, b, scale, out, ws, counters, M, K, N, ldb, kps, vec, af, lv_n, cp);
+  dim3 grid((N + kBlockN - 1) / kBlockN, splits, E * ((M + MT - 1) / MT));
+  fxp_gemm_fused_kernel<MT, kMode><<<grid, kThreads, 0, stream>>>(
+      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
   return cudaGetLastError();
 }
 
-// Row tiles of 4, 8 or 16 rows (8 at most for packed weights, whose lanes
-// hold twice the columns and so twice the accumulators).
-template <int kMode, bool kRaw>
-int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
-             int* ws, unsigned* counters, int E, int M, int K, int N, int ldb,
-             int kps, int vec, int af, int lv_n, const CordicParams* cp,
-             void* stream) {
-  const int max_mt = is_packed(kMode) ? 8 : 16;
+// Row tiles of 4, 8 or 16 rows.
+template <int kMode>
+int dispatch(const int8_t* a, const int8_t* b, const float* scale,
+             float* out, int* ws, unsigned* counters, int E, int M, int K,
+             int N, int kps, int vec, int af, int lv_n,
+             const CordicParams* cp, void* stream) {
   if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || kps <= 0 ||
       kps > kMaxKSplit || kps % 4 != 0 ||
-      (is_packed(kMode) && (ldb <= 0 || N > 2 * ldb)) ||
-      static_cast<long long>(E) * ((M + max_mt - 1) / max_mt) > 65535) {
+      static_cast<long long>(E) * ((M + 15) / 16) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 4) {
-    return static_cast<int>(launch<4, kMode, kRaw>(
-        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
-        *cp, s));
+    return static_cast<int>(launch<4, kMode>(
+        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
+        s));
   }
-  if constexpr (is_packed(kMode)) {
-    return static_cast<int>(launch<8, kMode, kRaw>(
-        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
-        *cp, s));
-  } else {
-    if (M <= 8) {
-      return static_cast<int>(launch<8, kMode, kRaw>(
-          a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af,
-          lv_n, *cp, s));
-    }
-    return static_cast<int>(launch<16, kMode, kRaw>(
-        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
-        *cp, s));
+  if (M <= 8) {
+    return static_cast<int>(launch<8, kMode>(
+        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
+        s));
   }
+  return static_cast<int>(launch<16, kMode>(
+      a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
+      s));
 }
 
 
@@ -426,25 +387,32 @@ int dispatch(const int8_t* a, const int8_t* b, const float* scale, void* out,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kThreads = 128;          // four warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowBytes = 128;         // a stage's weight row: 128 int8 or
-                                       // 64 int16 codes
+constexpr int kRowBytes = 128;         // a stage's weight row: 128 int8, 64
+                                       // int16 or 256 packed FxP4 codes
 constexpr int kBK = 128;               // k rows per stage
 constexpr int kStages = 4;             // the ring of stages
 // K rows per block: each int32 plane partial stays exact
 // (2 * 128 * 255 * 32768 < 2^31)
 constexpr int kMaxKSplitWide = 32768;
 
-// A block over codes T with MT activation rows: kBN output columns in
-// groups of 64, one group per warp, the warps of a group taking turns
-// over a stage's k32 steps. Shared memory per stage: kBK weight rows of
-// kRowBytes, then MT activation rows of kBK codes (padded by 16 codes,
-// so that a warp's fragment loads hit distinct banks); after the k loop
-// the same bytes hold the warps' partial tiles.
-template <typename T, int MT>
+// A block over codes T (or, kPacked, FxP4 nibble bytes) with MT
+// activation rows: kBN output columns in groups of 64, one group per
+// warp, the warps of a group taking turns over a stage's k32 steps; four
+// warps, eight for packed weights (two to each group of their 256
+// columns). Shared memory per stage: kBK weight rows of kRowBytes, then
+// MT activation rows of kBK codes (padded by 16 codes, so that a warp's
+// fragment loads hit distinct banks); after the k loop the same bytes
+// hold the warps' partial tiles and the tile's scaled sums.
+template <bool kPacked>
+constexpr int kThreadsOf = kPacked ? 256 : 128;
+
+template <typename T, int MT, bool kPacked = false>
 struct Shape {
-  static constexpr int kBN = kRowBytes / sizeof(T);
+  static_assert(!kPacked || sizeof(T) == 1, "packed weights are bytes");
+  static constexpr int kThreads = kThreadsOf<kPacked>;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRowCodes = kRowBytes / sizeof(T);  // as stored
+  static constexpr int kBN = kPacked ? 2 * kRowBytes : kRowCodes;
   static constexpr int kGroups = kBN / 64;
   static constexpr int kKWarps = kWarps / kGroups;     // warps per group
   static constexpr int kSteps = kBK / (32 * kKWarps);  // k32 steps a warp
@@ -460,8 +428,11 @@ struct Shape {
   // spread over the banks
   static constexpr int kRedStride = kBN + 1;
   static constexpr int kRedBytes = kKWarps * MT * kRedStride * sizeof(Acc);
-  static constexpr int kSmem = kStages * kStageBytes > kRedBytes
-                                   ? kStages * kStageBytes : kRedBytes;
+  // then the tile's scaled sums [MT][kBN] f32, for the AF pass
+  static constexpr int kFinBytes = MT * kBN * 4;
+  static constexpr int kSmem = kStages * kStageBytes > kRedBytes + kFinBytes
+                                   ? kStages * kStageBytes
+                                   : kRedBytes + kFinBytes;
 };
 
 // Byte offset of byte b of weight row r in a stage: the rows one after the
@@ -514,56 +485,58 @@ __device__ __forceinline__ void mma_k32(int (&d)[4], const unsigned (&a)[4],
 // A thread's share of the copies into a stage, fixed over the k loop:
 // 16-byte chunks of weight rows wr + kWRows q (chunk column wc) and of
 // activation rows ar + kARows q (chunk column ac); `issue` copies stage s
-// (k rows k0 + kBK s ..): rows past k1, columns past N and activation rows
-// past M are zero. `vec` bit 0 / bit 1: B's / A's rows are 16-byte aligned
-// (then cp.async copies, else plain loads of single codes).
-template <typename T, int MT>
+// (k rows k0 + kBK s ..): rows past k1, weight elements past a row's `ldb`
+// and activation rows past M are zero. B's rows are `ldb` elements apart
+// (N codes, or a packed weight's bytes), the block's first element of a
+// row is `b0`. `vec` bit 0 / bit 1: B's / A's rows are 16-byte aligned
+// (then cp.async copies, else plain loads of single elements).
+template <typename T, int MT, bool kPacked>
 struct CopyPlan {
-  using S = Shape<T, MT>;
+  using S = Shape<T, MT, kPacked>;
   static constexpr int kPer = 16 / sizeof(T);          // codes per chunk
   static constexpr int kWCols = kRowBytes / 16;
-  static constexpr int kWRows = kThreads / kWCols;     // weight rows a pass
+  static constexpr int kWRows = S::kThreads / kWCols;  // weight rows a pass
   static constexpr int kACols = kBK / kPer;
-  static constexpr int kARows = kThreads / kACols;     // activation rows
+  static constexpr int kARows = S::kThreads / kACols;  // activation rows
   static_assert(kWRows % 4 == 0, "a pass keeps the rows' swizzle");
 
   const T* A;
   const T* B;
-  int M, K, N, m0, n0, k0, k1, vec, tid;
+  int M, K, ldb, m0, b0, k0, k1, vec, tid;
   int wr, wc, ar, ac, wdst, adst;
   size_t wsrc, asrc;                 // element offsets of stage 0's chunks
 
   __device__ __forceinline__ CopyPlan(const T* A_, const T* B_, int M_,
-                                      int K_, int N_, int m0_, int n0_,
+                                      int K_, int ldb_, int m0_, int b0_,
                                       int k0_, int k1_, int vec_, int tid_)
-      : A(A_), B(B_), M(M_), K(K_), N(N_), m0(m0_), n0(n0_), k0(k0_),
+      : A(A_), B(B_), M(M_), K(K_), ldb(ldb_), m0(m0_), b0(b0_), k0(k0_),
         k1(k1_), vec(vec_), tid(tid_), wr(tid_ / kWCols), wc(tid_ % kWCols),
         ar(tid_ / kACols), ac(tid_ % kACols) {
     // row wr + kWRows q has row wr's swizzle: (kWRows q >> 2) & 3 == 0
     wdst = w_off(wr, 16 * wc);
     adst = S::kWBytes + ar * S::kAStride + 16 * ac;
-    wsrc = static_cast<size_t>(k0 + wr) * N + n0 + wc * kPer;
+    wsrc = static_cast<size_t>(k0 + wr) * ldb + b0 + wc * kPer;
     asrc = static_cast<size_t>(m0 + ar) * K + k0 + ac * kPer;
   }
 
   __device__ __forceinline__ void issue(unsigned char* st, int s) const {
     const int kb = k0 + s * kBK;
     if (vec & 1) {
-      const bool col = n0 + wc * kPer < N;
+      const bool col = b0 + wc * kPer < ldb;
 #pragma unroll
       for (int q = 0; q < kBK / kWRows; ++q) {
         const bool ok = col && kb + wr + kWRows * q < k1;
         cp_async16(st + wdst + kWRows * q * kRowBytes,
                    B + (ok ? wsrc + static_cast<size_t>(s * kBK + kWRows * q)
-                                        * N : 0), ok);
+                                        * ldb : 0), ok);
       }
     } else {
-      for (int i = tid; i < kBK * S::kBN; i += kThreads) {
-        const int r = i / S::kBN;
-        const int c = i - r * S::kBN;
+      for (int i = tid; i < kBK * S::kRowCodes; i += S::kThreads) {
+        const int r = i / S::kRowCodes;
+        const int c = i - r * S::kRowCodes;
         const int k = kb + r;
-        const T v = (k < k1 && n0 + c < N)
-            ? B[static_cast<size_t>(k) * N + n0 + c] : T(0);
+        const T v = (k < k1 && b0 + c < ldb)
+            ? B[static_cast<size_t>(k) * ldb + b0 + c] : T(0);
         *reinterpret_cast<T*>(st + w_off(r, c * sizeof(T))) = v;
       }
     }
@@ -581,7 +554,7 @@ struct CopyPlan {
       }
     } else {
       unsigned char* as = st + S::kWBytes;
-      for (int i = tid; i < MT * kBK; i += kThreads) {
+      for (int i = tid; i < MT * kBK; i += S::kThreads) {
         const int m = i / kBK;
         const int c = i - m * kBK;
         const int k = kb + c;
@@ -592,6 +565,35 @@ struct CopyPlan {
     }
   }
 };
+
+// Whether rows m0.. (at most MT, those below M) of A hold a nonzero code
+// in k0..k1, for thread `tid` of kThreads: 16-byte loads when A's rows
+// are aligned (`vec` bit 1; then K, k0 and k1 are multiples of 16 codes),
+// else code by code.
+template <typename T, int MT, int kThreads>
+__device__ __forceinline__ bool any_code(const T* A, int M, int K, int m0,
+                                         int k0, int k1, int vec, int tid) {
+  const int rows = min(MT, M - m0);
+  unsigned v = 0;
+  if (vec & 2) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int chunks = (k1 - k0) / kPer;
+    for (int i = tid; i < rows * chunks; i += kThreads) {
+      const int m = i / chunks;
+      const uint4 c = __ldg(reinterpret_cast<const uint4*>(
+                                A + static_cast<size_t>(m0 + m) * K + k0) +
+                            (i - m * chunks));
+      v |= c.x | c.y | c.z | c.w;
+    }
+  } else {
+    const int cols = k1 - k0;
+    for (int i = tid; i < rows * cols; i += kThreads) {
+      const int m = i / cols;
+      v |= A[static_cast<size_t>(m0 + m) * K + k0 + (i - m * cols)] != 0;
+    }
+  }
+  return v != 0;
+}
 
 // Lane (g, t) of a warp whose k rows start at `r0`: rows r0 + 16h + 4t + j
 // (j = 0..3) of columns 8g..8g+7, four int8 codes to a word (x: columns
@@ -611,6 +613,26 @@ __device__ __forceinline__ void transpose_rows(const unsigned (&x)[4],
   }
 }
 
+// Lane (g, t), packed weights: its word of weight row r0 + 16h + 4t + j
+// holds columns 8g..8g+7, byte b columns 8g + 2b (low nibble) and
+// 8g + 2b + 1 (high). transpose4 of the four rows' words gives each byte's
+// four k values in a word; each nibble, moved to the high half of its
+// byte, is 16 times its code as an int8 (16c for c in -8..7), so two
+// logic operations give col[h][2b] (low nibbles, shifted up) and
+// col[h][2b + 1] (high nibbles, masked), where transpose_rows puts an
+// int8 lane's columns. The products then sum to 16 times the exact sum.
+__device__ __forceinline__ void unpack_rows(const unsigned (&r)[4],
+                                            int (&col)[8]) {
+  int pairs[4];
+  transpose4(r, pairs);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const unsigned p = static_cast<unsigned>(pairs[b]);
+    col[2 * b] = static_cast<int>((p << 4) & 0xF0F0F0F0u);
+    col[2 * b + 1] = static_cast<int>(p & 0xF0F0F0F0u);
+  }
+}
+
 // int32 accumulators per lane: a plane (int8 codes: one; int16: hh,
 // hl + lh, ll) x 4 MMA row tiles x NT column tiles x 4
 template <typename T>
@@ -623,11 +645,11 @@ constexpr int kPlanes = sizeof(T) == 1 ? 1 : 3;
 // row 8 nt + n. `wl` and `al`: the lane's byte offsets in the stage of
 // row 4t of its columns (swizzled: rows r0 + 16h + 4t + j share row 4t's
 // swizzle) and of activation row g, k 4t.
-template <typename T, int MT>
+template <typename T, int MT, bool kPacked>
 __device__ __forceinline__ void k32_step(
     const unsigned char* st, int r0, int wl, int al,
     int (&acc)[kPlanes<T>][4][MT / 8][4]) {
-  using S = Shape<T, MT>;
+  using S = Shape<T, MT, kPacked>;
   constexpr bool kWide = sizeof(T) == 2;
   constexpr int kP = kWide ? 2 : 1;          // byte planes of a code
   const unsigned char* w = st + wl + r0 * kRowBytes;
@@ -636,24 +658,34 @@ __device__ __forceinline__ void k32_step(
   int col[kP][2][8];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    unsigned x[kP][4], y[kP][4];
+    if constexpr (kPacked) {
+      unsigned r[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned char* row = w + (16 * h + j) * kRowBytes;
-      if constexpr (kWide) {
-        const uint4 v = *reinterpret_cast<const uint4*>(row);
-        x[0][j] = __byte_perm(v.x, v.y, 0x7531);
-        x[kP - 1][j] = __byte_perm(v.x, v.y, 0x6420);
-        y[0][j] = __byte_perm(v.z, v.w, 0x7531);
-        y[kP - 1][j] = __byte_perm(v.z, v.w, 0x6420);
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(row);
-        x[0][j] = v.x;
-        y[0][j] = v.y;
+      for (int j = 0; j < 4; ++j) {
+        r[j] = *reinterpret_cast<const unsigned*>(w + (16 * h + j) *
+                                                  kRowBytes);
       }
-    }
+      unpack_rows(r, col[0][h]);
+    } else {
+      unsigned x[kP][4], y[kP][4];
 #pragma unroll
-    for (int p = 0; p < kP; ++p) transpose_rows(x[p], y[p], col[p][h]);
+      for (int j = 0; j < 4; ++j) {
+        const unsigned char* row = w + (16 * h + j) * kRowBytes;
+        if constexpr (kWide) {
+          const uint4 v = *reinterpret_cast<const uint4*>(row);
+          x[0][j] = __byte_perm(v.x, v.y, 0x7531);
+          x[kP - 1][j] = __byte_perm(v.x, v.y, 0x6420);
+          y[0][j] = __byte_perm(v.z, v.w, 0x7531);
+          y[kP - 1][j] = __byte_perm(v.z, v.w, 0x6420);
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(row);
+          x[0][j] = v.x;
+          y[0][j] = v.y;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p) transpose_rows(x[p], y[p], col[p][h]);
+    }
   }
   const unsigned char* a0 = st + S::kWBytes + al + r0 * sizeof(T);
 #pragma unroll
@@ -691,25 +723,45 @@ __device__ __forceinline__ void k32_step(
   }
 }
 
-template <typename T, int MT, bool kRaw>
-__global__ void __launch_bounds__(kThreads)
+// kPacked: B holds FxP4 nibble bytes [K, ldb] (N <= 2 ldb); else codes T
+// [K, N] (ldb = N). kBank: E such products, the grid's z axis walking
+// (expert, row tile), A [E, M, K], B [E, K, ldb], scale [E, N], out and
+// ws [E, M, N].
+template <typename T, int MT, bool kRaw, bool kPacked = false,
+          bool kBank = false>
+__global__ void __launch_bounds__(kThreadsOf<kPacked>)
 fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
                    const float* __restrict__ scale, void* __restrict__ out_,
-                   typename Shape<T, MT>::Acc* __restrict__ ws,
+                   typename Shape<T, MT, kPacked>::Acc* __restrict__ ws,
                    unsigned* __restrict__ counters, int M, int K, int N,
-                   int kps, int vec, int af, int lv_n, CordicParams cp) {
-  using S = Shape<T, MT>;
+                   int ldb, int kps, int vec, int af, int lv_n,
+                   CordicParams cp) {
+  using S = Shape<T, MT, kPacked>;
   using Acc = typename S::Acc;
+  using Out = typename std::conditional<kRaw, int, float>::type;
+  constexpr int kThreads = S::kThreads;
   constexpr int kBN = S::kBN;
   constexpr int NT = MT / 8;                 // MMA column tiles (rows of A)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
 
+  Out* out = static_cast<Out*>(out_);
+  int m0 = blockIdx.z * MT;
+  if constexpr (kBank) {
+    // blockIdx.z = expert * (row tiles) + row tile
+    const int m_tiles = (M + MT - 1) / MT;
+    const int expert = blockIdx.z / m_tiles;
+    A += static_cast<size_t>(expert) * M * K;
+    B += static_cast<size_t>(expert) * K * ldb;
+    scale += static_cast<size_t>(expert) * N;
+    out += static_cast<size_t>(expert) * M * N;
+    ws += static_cast<size_t>(expert) * M * N;
+    m0 = (blockIdx.z - expert * m_tiles) * MT;
+  }
   const int n0 = blockIdx.x * kBN;
   const int k0 = blockIdx.y * kps;
   const int k1 = min(K, k0 + kps);
-  const int m0 = blockIdx.z * MT;
-  const int steps = (k1 - k0 + kBK - 1) / kBK;
+  int steps = (k1 - k0 + kBK - 1) / kBK;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -717,16 +769,23 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int t = lane & 3;
   const int group = warp % S::kGroups;       // columns 64 group ..
   const int kwarp = warp / S::kGroups;       // k32 steps kwarp + kKWarps j
-  // the epilogue: thread tid owns column c of the tile, rows
-  // mr + kRowStep j; its scale is read before the k loop
-  constexpr int kRowStep = kThreads / kBN;
-  constexpr int kRows = MT / kRowStep;
-  const int c = tid % kBN;
-  const int mr = tid / kBN;
-  const int cn = n0 + c;
+  // the epilogue: thread tid owns element e = tid + kThreads j of the
+  // [MT][kBN] tile, row e / kBN and column e % kBN (j < kRows): one
+  // column, whose scale is read before the k loop
+  static_assert(kBN <= kThreads, "a thread owns one column");
+  constexpr int kRows = MT * kBN / kThreads;
+  const int cn = n0 + tid % kBN;
   float sc = 0.f;
   if constexpr (!kRaw) {
     if (cn < N) sc = __ldg(scale + cn);
+  }
+  if constexpr (kBank) {
+    // a slice of zero activation codes adds nothing: no copies, no
+    // products, a zero tile
+    if (!__syncthreads_or(any_code<T, MT, kThreads>(A, M, K, m0, k0, k1, vec,
+                                                    tid))) {
+      steps = 0;
+    }
   }
 
   int acc[kPlanes<T>][4][NT][4];
@@ -739,10 +798,12 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[p][i][nt][c] = 0;
 
-  const CopyPlan<T, MT> plan(A, B, M, K, N, m0, n0, k0, k1, vec, tid);
-  // the lane's fragment offsets (see k32_step): column c0 + 8g's byte in
-  // row 4t, swizzled, and activation row g at k 4t
-  const int cb = sizeof(T) * (64 * group + 8 * g);
+  const CopyPlan<T, MT, kPacked> plan(A, B, M, K, ldb, m0,
+                                      kPacked ? n0 / 2 : n0, k0, k1, vec,
+                                      tid);
+  // the lane's fragment offsets (see k32_step): the byte of column
+  // c0 + 8g in row 4t, swizzled, and activation row g at k 4t
+  const int cb = (64 * group + 8 * g) * sizeof(T) / (kPacked ? 2 : 1);
   const int wl = 4 * t * kRowBytes + ((((cb >> 4) ^ (2 * t))) << 4) +
                  (cb & 15);
   const int al = g * S::kAStride + 4 * t * sizeof(T);
@@ -765,7 +826,8 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
     const unsigned char* st = smem + (s % kStages) * S::kStageBytes;
 #pragma unroll
     for (int j = 0; j < S::kSteps; ++j) {
-      k32_step<T, MT>(st, 32 * (kwarp + S::kKWarps * j), wl, al, acc);
+      k32_step<T, MT, kPacked>(st, 32 * (kwarp + S::kKWarps * j), wl, al,
+                               acc);
     }
   }
   cp_async_wait<0>();
@@ -773,7 +835,10 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
   // the warps' partial tiles [kwarp][MT][kBN] (rows kRedStride apart):
   // accumulator e of MMA tile i, column tile nt is output column
-  // 64 group + 8g + 2i + (e >> 1), row nt * 8 + 2t + (e & 1)
+  // 64 group + 8g + 2i + (e >> 1), row nt * 8 + 2t + (e & 1); packed
+  // weights' sums are 16 times the exact sum (see unpack_rows), a
+  // multiple of 16 below 2^31 in magnitude (16 * 8 * 128 * 32768 = 2^29),
+  // so an arithmetic shift takes the factor back off exactly
   Acc* red = reinterpret_cast<Acc*>(smem);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -787,7 +852,7 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
               (static_cast<long long>(acc[1][i][nt][e]) << 8) +
               static_cast<long long>(acc[2][i][nt][e]);
         } else {
-          v = acc[0][i][nt][e];
+          v = kPacked ? acc[0][i][nt][e] >> 4 : acc[0][i][nt][e];
         }
         const int m = nt * 8 + 2 * t + (e & 1);
         red[(kwarp * MT + m) * S::kRedStride + 64 * group + 8 * g + 2 * i +
@@ -800,41 +865,63 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   Acc total[kRows];
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
+    const int e = tid + kThreads * j;
     total[j] = 0;
 #pragma unroll
     for (int w = 0; w < S::kKWarps; ++w) {
-      total[j] += red[(w * MT + mr + kRowStep * j) * S::kRedStride + c];
+      total[j] += red[(w * MT + e / kBN) * S::kRedStride + e % kBN];
     }
   }
+  // element j's offset in out and ws, or -1 past M or N
+  auto offset = [&](int j) -> long long {
+    const int row = m0 + (tid + kThreads * j) / kBN;
+    return (row < M && cn < N) ? static_cast<long long>(row) * N + cn : -1;
+  };
+  // the raw GEMMs write the low 32 bits of the sum (the wrapping int32
+  // sum); the fused modes keep the scaled sum for the AF pass
+  float* fin = reinterpret_cast<float*>(smem + S::kRedBytes);
   auto store = [&](int j, Acc v) {
-    const int row = m0 + mr + kRowStep * j;
-    if (row >= M || cn >= N) return;
-    const size_t o = static_cast<size_t>(row) * N + cn;
     if constexpr (kRaw) {
-      // the low 32 bits: the wrapping int32 sum
-      static_cast<int*>(out_)[o] = static_cast<int>(static_cast<unsigned>(v));
+      const long long o = offset(j);
+      if (o >= 0) out[o] = static_cast<int>(static_cast<unsigned>(v));
     } else {
-      const float f = __fmul_rn(__ll2float_rn(v), sc);
-      static_cast<float*>(out_)[o] = apply_af(f, af, cp, lv_n);
+      fin[tid + kThreads * j] = __fmul_rn(__ll2float_rn(v), sc);
+    }
+  };
+  // the AF pass of the fused modes: one loop over the tile's rows below M,
+  // kept rolled so that the CORDIC code is inlined once, its stores
+  // coalesced
+  auto finish = [&]() {
+    if constexpr (!kRaw) {
+      __syncthreads();
+      const int rows = min(MT, M - m0);
+#pragma unroll 1
+      for (int e = tid; e < rows * kBN; e += kThreads) {
+        const int c = n0 + e % kBN;
+        if (c < N) {
+          out[static_cast<size_t>(m0 + e / kBN) * N + c] =
+              apply_af(fin[e], af, cp, lv_n);
+        }
+      }
     }
   };
   if (gridDim.y == 1) {
 #pragma unroll
     for (int j = 0; j < kRows; ++j) store(j, total[j]);
+    finish();
     return;
   }
   // split K: add the tile into the workspace, then let the last block of
   // the tile apply the epilogue
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
-    const int row = m0 + mr + kRowStep * j;
-    if (row < M && cn < N && total[j] != 0) {
-      Acc* w = ws + static_cast<size_t>(row) * N + cn;
+    const long long o = offset(j);
+    if (o >= 0 && total[j] != 0) {
       if constexpr (sizeof(T) == 2) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(w),
+        atomicAdd(reinterpret_cast<unsigned long long*>(ws + o),
                   static_cast<unsigned long long>(total[j]));
       } else {
-        atomicAdd(w, total[j]);
+        atomicAdd(ws + o, total[j]);
       }
     }
   }
@@ -854,58 +941,67 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   // every load before the first store: one round trip to the L2
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
-    const int row = m0 + mr + kRowStep * j;
-    total[j] = (row < M && cn < N)
-        ? __ldcg(ws + static_cast<size_t>(row) * N + cn) : Acc(0);
+    const long long o = offset(j);
+    total[j] = o >= 0 ? __ldcg(ws + o) : Acc(0);
   }
 #pragma unroll
   for (int j = 0; j < kRows; ++j) store(j, total[j]);
+  finish();
 }
 
-template <typename T, int MT, bool kRaw>
+template <typename T, int MT, bool kRaw, bool kPacked, bool kBank>
 cudaError_t launch(const T* a, const T* b, const float* scale, void* out,
-                   typename Shape<T, MT>::Acc* ws, unsigned* counters, int M,
-                   int K, int N, int kps, int vec, int af, int lv_n,
+                   typename Shape<T, MT, kPacked>::Acc* ws,
+                   unsigned* counters, int E, int M, int K, int N, int ldb,
+                   int kps, int vec, int af, int lv_n,
                    const CordicParams& cp, cudaStream_t stream) {
-  constexpr int kSmem = Shape<T, MT>::kSmem;
-  constexpr int kBN = Shape<T, MT>::kBN;
+  using S = Shape<T, MT, kPacked>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fxp_gemm_tc_kernel<T, MT, kRaw>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      fxp_gemm_tc_kernel<T, MT, kRaw, kPacked, kBank>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((N + kBN - 1) / kBN, (K + kps - 1) / kps, (M + MT - 1) / MT);
-  fxp_gemm_tc_kernel<T, MT, kRaw><<<grid, kThreads, kSmem, stream>>>(
-      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
+  dim3 grid((N + S::kBN - 1) / S::kBN, (K + kps - 1) / kps,
+            E * ((M + MT - 1) / MT));
+  fxp_gemm_tc_kernel<T, MT, kRaw, kPacked, kBank>
+      <<<grid, S::kThreads, S::kSmem, stream>>>(
+          a, b, scale, out, ws, counters, M, K, N, ldb, kps, vec, af, lv_n,
+          cp);
   return cudaGetLastError();
 }
 
-// Row tiles of 8, 16 or (int8 codes) 32 activation rows: one to four MMA
-// column tiles share each weight fragment.
-template <typename T, bool kRaw>
+// Row tiles of 8, 16 or (int8 codes and packed weights) 32 activation
+// rows: one to four MMA column tiles share each weight fragment. E > 1
+// only for banks; ldb: B's row in elements (N unless packed).
+template <typename T, bool kRaw, bool kPacked = false, bool kBank = false>
 int dispatch(const T* a, const T* b, const float* scale, void* out,
-             typename Shape<T, 8>::Acc* ws, unsigned* counters, int M, int K,
-             int N, int kps, int vec, int af, int lv_n, const CordicParams* cp,
-             void* stream) {
+             typename Shape<T, 8>::Acc* ws, unsigned* counters, int E, int M,
+             int K, int N, int ldb, int kps, int vec, int af, int lv_n,
+             const CordicParams* cp, void* stream) {
+  static_assert(!(kRaw && kBank), "banks have the fused epilogue");
   constexpr int kMaxMT = sizeof(T) == 1 ? 32 : 16;
-  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps % kBK != 0 ||
-      kps > kMaxKSplitWide || (K + kps - 1) / kps > 65535 ||
-      (M + kMaxMT - 1) / kMaxMT > 65535) {
+  if (E <= 0 || (!kBank && E != 1) || M <= 0 || N <= 0 || K <= 0 ||
+      kps <= 0 || kps % kBK != 0 || kps > kMaxKSplitWide ||
+      (K + kps - 1) / kps > 65535 ||
+      (kPacked ? (ldb <= 0 || N > 2 * ldb) : ldb != N) ||
+      static_cast<long long>(E) * ((M + kMaxMT - 1) / kMaxMT) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 8) {
-    return static_cast<int>(launch<T, 8, kRaw>(
-        a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp, s));
+    return static_cast<int>(launch<T, 8, kRaw, kPacked, kBank>(
+        a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
+        *cp, s));
   }
   if constexpr (kMaxMT == 32) {
     if (M > 16) {
-      return static_cast<int>(launch<T, 32, kRaw>(
-          a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp,
-          s));
+      return static_cast<int>(launch<T, 32, kRaw, kPacked, kBank>(
+          a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af,
+          lv_n, *cp, s));
     }
   }
-  return static_cast<int>(launch<T, 16, kRaw>(
-      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp, s));
+  return static_cast<int>(launch<T, 16, kRaw, kPacked, kBank>(
+      a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n,
+      *cp, s));
 }
 
 }  // namespace tc
@@ -970,8 +1066,8 @@ extern "C" int fxp_gemm_fused_batched(const int8_t* a, const int8_t* b,
                                       int N, int kps, int vec, int af,
                                       int lv_n, const CordicParams* cp,
                                       void* stream) {
-  return dispatch<kExpertBank, false>(a, b, scale, out, ws, counters, E, M, K,
-                                      N, N, kps, vec, af, lv_n, cp, stream);
+  return dispatch<kExpertBank>(a, b, scale, out, ws, counters, E, M, K, N,
+                               kps, vec, af, lv_n, cp, stream);
 }
 
 extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
@@ -979,23 +1075,30 @@ extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
                               unsigned* counters, int M, int K, int N, int kps,
                               int vec, int af, int lv_n,
                               const CordicParams* cp, void* stream) {
-  return dispatch<kDense, false>(a, b, scale, out, ws, counters, 1, M, K, N,
-                                 N, kps, vec, af, lv_n, cp, stream);
+  return dispatch<kDense>(a, b, scale, out, ws, counters, 1, M, K, N, kps,
+                          vec, af, lv_n, cp, stream);
 }
 
-// Packed FxP4 weights: b holds nibble bytes [K, ldb] (the int32 words of
-// core.simd.pack seen as bytes), N <= 2 * ldb output columns.
+// Packed FxP4 weights on the tensor-core core: b holds nibble bytes
+// [K, ldb] (the int32 words of core.simd.pack seen as bytes), N <= 2 * ldb
+// output columns; kps a multiple of 128, at most 32768; when K is split
+// (kps < K) ws int32 [M, N] and one counter per tile, zeroed; `vec` bit
+// 0 / 1: b's / a's rows are 16-byte aligned.
 extern "C" int fxp_gemm_fused_packed(const int8_t* a, const int8_t* b,
                                      const float* scale, float* out, int* ws,
                                      unsigned* counters, int M, int K, int N,
                                      int ldb, int kps, int vec, int af,
                                      int lv_n, const CordicParams* cp,
                                      void* stream) {
-  return dispatch<kPackedFxP4, false>(a, b, scale, out, ws, counters, 1, M, K,
-                                      N, ldb, kps, vec, af, lv_n, cp, stream);
+  return tc::dispatch<int8_t, false, true>(a, b, scale, out, ws, counters, 1,
+                                           M, K, N, ldb, kps, vec, af, lv_n,
+                                           cp, stream);
 }
 
-// Packed FxP4 expert banks: b holds nibble bytes [E, K, ldb], N <= 2 * ldb.
+// Packed FxP4 expert banks on the tensor-core core: a [E, M, K], b nibble
+// bytes [E, K, ldb], N <= 2 * ldb, scale [E, N], out [E, M, N]; kps and
+// `vec` as for the dense entry, ws [E, M, N] and one counter per (expert,
+// tile) when K is split.
 extern "C" int fxp_gemm_fused_batched_packed(const int8_t* a, const int8_t* b,
                                              const float* scale, float* out,
                                              int* ws, unsigned* counters,
@@ -1003,8 +1106,9 @@ extern "C" int fxp_gemm_fused_batched_packed(const int8_t* a, const int8_t* b,
                                              int ldb, int kps, int vec, int af,
                                              int lv_n, const CordicParams* cp,
                                              void* stream) {
-  return dispatch<kPackedBank, false>(a, b, scale, out, ws, counters, E, M, K,
-                                      N, ldb, kps, vec, af, lv_n, cp, stream);
+  return tc::dispatch<int8_t, false, true, true>(
+      a, b, scale, out, ws, counters, E, M, K, N, ldb, kps, vec, af, lv_n, cp,
+      stream);
 }
 
 // Codes wider than 8 bits on the tensor-core core: int16 a [M, K],
@@ -1017,22 +1121,23 @@ extern "C" int fxp_gemm_fused_wide(const int16_t* a, const int16_t* b,
                                    int K, int N, int kps, int vec, int af,
                                    int lv_n, const CordicParams* cp,
                                    void* stream) {
-  return tc::dispatch<int16_t, false>(a, b, scale, out, ws, counters, M, K, N,
-                                      kps, vec, af, lv_n, cp, stream);
+  return tc::dispatch<int16_t, false>(a, b, scale, out, ws, counters, 1, M, K,
+                                      N, N, kps, vec, af, lv_n, cp, stream);
 }
 
-// Raw int32 products, no epilogue: int8 codes b [K, N] on the tensor-core
-// core (ws int32, kps and `vec` as for the wide mode), or with packed = 1
-// nibble bytes b [K, ldb] on the __dp4a walk.
+// Raw int32 products on the tensor-core core, no epilogue: int8 codes
+// b [K, N], or with packed = 1 nibble bytes b [K, ldb] (N <= 2 * ldb); ws
+// int32, kps and `vec` as for the wide mode.
 extern "C" int fxp_gemm_codes_int8(const int8_t* a, const int8_t* b, int* out,
                                    int* ws, unsigned* counters, int M, int K,
                                    int N, int ldb, int packed, int kps,
                                    int vec, void* stream) {
   return packed
-      ? dispatch<kPackedFxP4, true>(a, b, nullptr, out, ws, counters, 1, M, K,
-                                    N, ldb, kps, vec, 0, 0, &kNoCordic, stream)
-      : tc::dispatch<int8_t, true>(a, b, nullptr, out, ws, counters, M, K, N,
-                                   kps, vec, 0, 0, &kNoCordic, stream);
+      ? tc::dispatch<int8_t, true, true>(a, b, nullptr, out, ws, counters, 1,
+                                         M, K, N, ldb, kps, vec, 0, 0,
+                                         &kNoCordic, stream)
+      : tc::dispatch<int8_t, true>(a, b, nullptr, out, ws, counters, 1, M, K,
+                                   N, N, kps, vec, 0, 0, &kNoCordic, stream);
 }
 
 // Raw products of int16 codes on the tensor-core core: the low 32 bits of
@@ -1041,8 +1146,9 @@ extern "C" int fxp_gemm_codes_int16(const int16_t* a, const int16_t* b,
                                     int* out, long long* ws,
                                     unsigned* counters, int M, int K, int N,
                                     int kps, int vec, void* stream) {
-  return tc::dispatch<int16_t, true>(a, b, nullptr, out, ws, counters, M, K,
-                                     N, kps, vec, 0, 0, &kNoCordic, stream);
+  return tc::dispatch<int16_t, true>(a, b, nullptr, out, ws, counters, 1, M,
+                                     K, N, N, kps, vec, 0, 0, &kNoCordic,
+                                     stream);
 }
 
 // Raw int32 products of int32 codes.

@@ -19,18 +19,22 @@ Modes, each its own kernel instantiation (`launches_by_mode` counts them):
                 [K, NB] (the int32 words of `core.simd.pack` seen as
                 bytes), byte j holding elements 2j (low nibble) and 2j+1
                 (high), sign-extended; N = scale.numel() <= 2 NB;
-  * wide      — int16 codes (FxP12/16) on the tensor-core core: each code
-                splits into a signed high byte and an unsigned low byte,
-                four int8 tensor-core products of the byte planes
-                combine exactly in int64, and the exact sum rounds once to
-                f32 (`byte_plane_matmul` is that arithmetic in plain
-                PyTorch); exact while K * 2^30 < 2^53;
+  * wide      — int16 codes (FxP12/16): each code splits into a signed
+                high byte and an unsigned low byte, four int8 tensor-core
+                products of the byte planes combine exactly in int64, and
+                the exact sum rounds once to f32 (`byte_plane_matmul` is
+                that arithmetic in plain PyTorch); exact while
+                K * 2^30 < 2^53;
   * batched and batched_packed — the expert banks, int8 or packed.
-The int8, packed and bank modes walk B with `__dp4a` on the CUDA cores;
-the wide mode and the raw int8 and int16 code GEMMs run on `mma.sync`
-tensor-core tiles fed by asynchronous copies (csrc/fxp_gemm.cu says what
-bounds each and what its design does about it). At decode every one of
-them is bound by reading the weight once.
+Where each runs: the int8 and int8 bank modes walk B with `__dp4a` on the
+CUDA cores (`fxp_gemm_fused_kernel`); the packed, packed bank and wide
+modes and the raw int8, int16 and packed code GEMMs run on the
+tensor-core core (`fxp_gemm_tc_kernel`): `mma.sync` tiles fed by
+asynchronous copies, the nibbles of packed weights turned into int8
+fragments in registers as 16 times their codes, the factor shifted off
+the exact int32 sum (csrc/fxp_gemm.cu says what bounds each and what its
+design does about it). At decode every one of them is bound by reading the
+weight once.
 The reference's Pallas kernel sums codes wider than 8 bits in f32 in
 XLA's order (int32 only under its `wide_exact` bound K * qmax^2 < 2^31,
 where this port equals it bit for bit); the port's exact sum is within
@@ -67,7 +71,8 @@ _SMS = 132            # H100 SXM streaming multiprocessors
 _BLOCK_N = 128        # kBlockN in csrc/fxp_gemm.cu (the __dp4a walk)
 _MAX_KPS = 1024       # kMaxKSplit in csrc/fxp_gemm.cu
 _TC_ROW_BYTES = 128   # tc::kRowBytes in csrc/fxp_gemm.cu (the tensor-core
-                      # core): a block's columns, 128 int8 or 64 int16 codes
+                      # core): a block's columns, 128 int8, 64 int16 or 256
+                      # packed FxP4 codes
 _TC_BLOCK_K = 128     # tc::kBK: k rows per stage
 _TC_BLOCKS = 2 * _SMS  # blocks of the core resident at once (two per SM)
 _MAX_KPS_WIDE = 32768  # tc::kMaxKSplitWide: 2 * 128 * 255 * 32768 < 2^31
@@ -162,35 +167,38 @@ def fxp_gemm_fused_batched_plain(x_codes: torch.Tensor,
         for e in range(x_codes.shape[0])])
 
 
-def _tiles(m: int, packed: bool, core=None) -> tuple[int, int]:
-    """(columns per block, row tiles) of a kernel's grid. The __dp4a
-    walk: 256 columns for packed weights, else 128; one tile up to 8
-    rows, else tiles of 16 rows (8 for packed weights). The tensor-core
-    core (`core` the codes' dtype, int8 or int16): 128 bytes of columns
-    (128 int8 or 64 int16 codes); tiles of 8, 16 or 32 rows (16 at most
-    for int16 codes)."""
-    if core is not None:
+def _tiles(m: int, packed: bool = False, core=None) -> tuple[int, int]:
+    """(columns per block, row tiles) of a kernel's grid. The tensor-core
+    core (`core` the codes' dtype, int8 or int16; packed weights always
+    run there): a stage row of 128 bytes of columns (128 int8, 64 int16
+    or 256 packed FxP4 codes); tiles of 8, 16 or 32 rows (16 at most for
+    int16 codes). The __dp4a walk (int8 codes): 128 columns; one tile up
+    to 8 rows, else tiles of 16 rows."""
+    if core is not None or packed:
         wide = core == torch.int16
         rows = 8 if m <= 8 else 16 if m <= 16 or wide else 32
-        return _TC_ROW_BYTES // (2 if wide else 1), -(-m // rows)
-    return ((2 if packed else 1) * _BLOCK_N,
-            1 if m <= 8 else -(-m // (8 if packed else 16)))
+        cols = (2 if packed else 1) * _TC_ROW_BYTES // (2 if wide else 1)
+        return cols, -(-m // rows)
+    return _BLOCK_N, 1 if m <= 8 else -(-m // 16)
 
 
 def k_split(m: int, k: int, n: int, experts: int = 1,
             packed: bool = False, core=None) -> int:
-    """K rows per block. The __dp4a walk: enough blocks to fill the card
-    four times over at decode shapes, at most the staged A slice's rows
-    (`_MAX_KPS`), a multiple of 32 (four rows per warp step, eight warps).
-    The tensor-core core (`core` as for `_tiles`): as many blocks as fit
-    two to an SM (`_TC_BLOCKS`; a few more would wait for a second wave),
-    at least 256 rows each, at most `_MAX_KPS_WIDE`, a multiple of a
-    stage's 128 rows."""
+    """K rows per block. The tensor-core core (`core` and `packed` as for
+    `_tiles`; `experts` counts a bank's tiles): as many blocks as fit two
+    to an SM (`_TC_BLOCKS`; a few more would wait for a second wave; one
+    to an SM for packed weights' 32-row tiles, whose 256 threads hold
+    over half an SM's registers), at least 256 rows each, at most
+    `_MAX_KPS_WIDE`, a multiple of a stage's 128 rows.
+    The __dp4a walk: enough blocks to fill the card four times over at
+    decode shapes, at most the staged A slice's rows (`_MAX_KPS`), a
+    multiple of 32 (four rows per warp step, eight warps)."""
     block_n, m_tiles = _tiles(m, packed, core)
     tiles = -(-n // block_n) * m_tiles * experts
-    if core is not None:
+    if core is not None or packed:
+        resident = _SMS if packed and m > 16 else _TC_BLOCKS
         splits = max(-(-k // _MAX_KPS_WIDE),
-                     min(max(1, _TC_BLOCKS // tiles), -(-k // 256)))
+                     min(max(1, resident // tiles), -(-k // 256)))
         kps = -(-k // splits)
         return -(-kps // _TC_BLOCK_K) * _TC_BLOCK_K
     splits = max(-(-k // _MAX_KPS), min(-(-4 * _SMS // tiles), -(-k // 128)))
@@ -223,7 +231,7 @@ def _workspace(x_codes, e, m, k, n, packed, core=None):
     one int32 semaphore per tile, zeroed; one K slice per tile reads
     neither."""
     kps = k_split(m, k, n, e, packed, core)
-    if core is not None:
+    if core is not None or packed:
         assert kps <= _MAX_KPS_WIDE, "a block's int32 plane sums would overflow"
     block_n, m_tiles = _tiles(m, packed, core)
     tiles = -(-n // block_n) * m_tiles * e
@@ -247,7 +255,8 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
     """One launch over x [E, M, K], w [E, K, N] (or packed bytes [E, K,
     NB]), scale [E, N] (CUDA, int8 codes, checked by the callers) -> f32
     [E, M, N]: the expert-batched kernel, or for E = 1 without `experts`
-    the single-matrix one, int8 or packed."""
+    the single-matrix one; int8 codes on the __dp4a walk, packed weights
+    on the tensor-core core."""
     e, m, k = x_codes.shape
     n = scale.numel() // e
     x_codes = x_codes.contiguous()
@@ -256,7 +265,8 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
     out = torch.empty((e, m, n), dtype=torch.float32, device=x_codes.device)
     kps, ws, sem = _workspace(x_codes, e, m, k, n, packed)
     ldb = w_codes.shape[2]
-    vec = int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0)
+    vec = (_tc_vec(x_codes, w_codes) if packed
+           else int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0))
     lib = library("fxp_gemm", _SIGNATURES)
     ptrs = (x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
             out.data_ptr(), ws.data_ptr(), sem)
@@ -284,10 +294,12 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
 def _tc_vec(x_codes, w_codes):
     """The tensor-core core's `vec` bits: 1 when the weight's rows, 2 when
     the activation's rows are 16-byte aligned (copied in 16-byte chunks;
-    otherwise code by code)."""
+    otherwise code by code), for operands [..., K] and [..., K, N] (or
+    packed bytes [..., K, NB]) of one dtype."""
     e = x_codes.element_size()
-    return (int(w_codes.shape[1] * e % 16 == 0 and w_codes.data_ptr() % 16 == 0)
-            | 2 * int(x_codes.shape[1] * e % 16 == 0
+    return (int(w_codes.shape[-1] * e % 16 == 0
+                and w_codes.data_ptr() % 16 == 0)
+            | 2 * int(x_codes.shape[-1] * e % 16 == 0
                       and x_codes.data_ptr() % 16 == 0))
 
 
@@ -437,26 +449,23 @@ def fxp4_gemm_packed_plain(x_codes: torch.Tensor, w_packed: torch.Tensor
 
 def _raw_code_gemm(x_codes, w_codes, n, packed=False):
     """One launch of a raw code GEMM over x [M, K] and w [K, N] (or
-    packed bytes [K, N/2]) -> int32 [M, N]: int8 and int16 codes on the
-    tensor-core core, packed weights on the __dp4a walk's raw mode."""
+    packed bytes [K, N/2]) -> int32 [M, N] on the tensor-core core: int8
+    and int16 codes, and packed weights."""
     m, k = x_codes.shape
     x_codes, w_codes = x_codes.contiguous(), w_codes.contiguous()
     out = torch.empty((m, n), dtype=torch.int32, device=x_codes.device)
-    core = None if packed else x_codes.dtype
+    core = x_codes.dtype
     kps, ws, sem = _workspace(x_codes, 1, m, k, n, packed, core)
     lib = library("fxp_gemm", _SIGNATURES)
     ptrs = (x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(),
             ws.data_ptr(), sem)
+    vec = _tc_vec(x_codes, w_codes)
     if core == torch.int16:
-        err = lib.fxp_gemm_codes_int16(*ptrs, m, k, n, kps,
-                                       _tc_vec(x_codes, w_codes),
+        err = lib.fxp_gemm_codes_int16(*ptrs, m, k, n, kps, vec,
                                        _stream(x_codes))
     else:
-        ldb = w_codes.shape[1]
-        vec = (int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0) if packed
-               else _tc_vec(x_codes, w_codes))
-        err = lib.fxp_gemm_codes_int8(*ptrs, m, k, n, ldb, int(packed), kps,
-                                      vec, _stream(x_codes))
+        err = lib.fxp_gemm_codes_int8(*ptrs, m, k, n, w_codes.shape[1],
+                                      int(packed), kps, vec, _stream(x_codes))
     if err != 0:
         raise RuntimeError(f"code GEMM launch failed: CUDA error {err}")
     return out

@@ -22,7 +22,9 @@ is held within 1% of the output's range. The GEMM's wide mode (int16
 codes, byte planes on the tensor cores) takes the exact integer sum and
 rounds it once to f32, as its plain version does: bit-equal, with and
 without its AF; its packed expert-bank mode is bit-equal to the
-per-expert loop of the packed plain version."""
+per-expert loop of the packed plain version. The packed modes (dense,
+expert banks and the raw packed GEMM) run on the tensor-core core, whose
+profiler record is `fxp_gemm_tc_kernel`."""
 import numpy as np
 import pytest
 import torch
@@ -71,12 +73,18 @@ def test_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, af):
 
 @pytest.mark.parametrize("m,k,n,nb", [(4, 512, 1000, 500), (13, 1030, 384, 192),
                                       (20, 96, 130, 65), (16, 5120, 1024, 512),
-                                      (4, 5120, 5117, 2560)])
+                                      (4, 5120, 5117, 2560),
+                                      (16, 1030, 1001, 501),
+                                      (32, 200, 513, 257),
+                                      (32, 5120, 5120, 2560),
+                                      (33, 2056, 768, 384)])
 @pytest.mark.parametrize("af", [None, "silu"])
 def test_packed_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, nb, af):
-    """Packed FxP4 weights [K, nb] bytes holding N <= 2 nb columns: whole
-    word loads (nb a multiple of 4) and byte loads (nb = 65), ragged N,
-    one row tile (M <= 8) and several (M 13, 16, 20)."""
+    """Packed FxP4 weights [K, nb] bytes holding N <= 2 nb columns on the
+    tensor-core core: rows copied in 16-byte chunks (nb a multiple of 16)
+    and byte by byte (nb 500, 65, 501, 257), ragged and odd N, K not a
+    multiple of a 128-row stage, row tiles of 8 (M <= 8), 16 (M 13, 16)
+    and 32 rows (M 20, 32; M 33 two tiles), K split or whole."""
     rng = np.random.default_rng(m * 13 + n)
     x = torch.from_numpy(rng.integers(-8, 8, (m, k), dtype=np.int8))
     w = torch.from_numpy(rng.integers(-128, 128, (k, nb), dtype=np.int8))
@@ -93,12 +101,13 @@ def test_packed_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, nb, af):
                                    (17, 96, 64), (32, 5120, 5120),
                                    (33, 1000, 1000), (64, 2056, 136)])
 def test_code_gemm_kernels_bit_equal_to_plain(cuda, m, k, n):
-    """The raw int32 code GEMMs: int8 codes and FxP12 codes in int16 (the
-    tensor-core core; int16 inside the caller's bound K * qmax^2 < 2^31),
-    small int32 codes (the tiled int32 kernel), int8 against int16, and
-    packed FxP4 weights; one to four row tiles of 8 to 32 rows, N not a
-    multiple of 16 (code-by-code copies of int8 rows) and K not a
-    multiple of 32."""
+    """The raw int32 code GEMMs: int8 codes, FxP12 codes in int16 (inside
+    the caller's bound K * qmax^2 < 2^31) and packed FxP4 weights, all on
+    the tensor-core core, small int32 codes (the tiled int32 kernel), and
+    int8 against int16; one to four row tiles of 8 to 32 rows (M 32, 33
+    and 64 for the packed weights too), N not a multiple of 16
+    (code-by-code copies of int8 rows; for packed bytes, N / 2 not a
+    multiple of 16) and K not a multiple of 32."""
     rng = np.random.default_rng(m + k + n)
 
     def codes(shape, q, dtype):
@@ -289,14 +298,23 @@ def test_wide_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, ends, af):
                                      (64, 16, 2048, 1408), (5, 3, 256, 130),
                                      (3, 40, 96, 64)])
 @pytest.mark.parametrize("af", [None, "silu"])
-def test_packed_batched_gemm_kernel_bit_equal_to_plain(cuda, e, m, k, n, af):
+@pytest.mark.parametrize("fill", ["half", "mixed"])
+def test_packed_batched_gemm_kernel_bit_equal_to_plain(cuda, e, m, k, n, af,
+                                                       fill):
     """Packed FxP4 expert banks [E, K, N/2] bytes in one launch, at
     DeepSeekMoE-16B's decode and prefill banks and at ragged shapes;
     expert 1's queue is empty and every queue is half filled, as a
-    dropless bank's are: bit-equal to the per-expert packed plain loop."""
+    dropless bank's are, or (`mixed`) every third expert has no routed
+    row, every third a full queue and the rest one row: bit-equal to the
+    per-expert packed plain loop (blocks of an empty expert skip their
+    copies and products and still write AF(0))."""
     rng = np.random.default_rng(e * 100 + m + k)
     x = rng.integers(-7, 8, (e, m, k), dtype=np.int8)
-    x[:, (m + 1) // 2:] = 0
+    if fill == "half":
+        x[:, (m + 1) // 2:] = 0
+    else:
+        x[0::3, 1:] = 0
+        x[1::3] = 0
     x[1] = 0
     x = torch.from_numpy(x).to(cuda)
     nb = -(-n // 2)
@@ -315,6 +333,39 @@ def test_packed_batched_gemm_kernel_bit_equal_to_plain(cuda, e, m, k, n, af):
     for i in (0, e - 1):
         assert torch.equal(got[i], fxp_gemm_fused(x[i], w[i], scale[i],
                                                   af=af, packed=True))
+
+
+def _kernel_records(fn):
+    """Names of the device kernels one call of `fn()` launches."""
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act):     # takes late records
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0}
+
+
+@pytest.mark.parametrize("entry", ["dense", "bank", "raw"])
+def test_packed_calls_run_on_the_tensor_core_core(cuda, entry):
+    """A packed call's kernel record is the tensor-core core's
+    (`fxp_gemm_tc_kernel`), not the __dp4a walk's."""
+    rng = np.random.default_rng(11)
+    e = 4 if entry == "bank" else 1
+    x = torch.from_numpy(rng.integers(-7, 8, (e, 4, 1024),
+                                      dtype=np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (e, 1024, 320),
+                                      dtype=np.int8)).to(cuda)
+    scale = torch.full((e, 640), 1e-3, device=cuda)
+    calls = {"dense": lambda: fxp_gemm_fused(x[0], w[0], scale[0],
+                                             packed=True),
+             "bank": lambda: fxp_gemm_fused_batched(x, w, scale, packed=True),
+             "raw": lambda: fxp4_gemm_packed(x[0], w[0])}
+    names = _kernel_records(calls[entry])
+    assert any("fxp_gemm_tc_kernel" in n for n in names), names
+    assert not any("fxp_gemm_fused_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("e,m,k,n", [(5, 3, 256, 130), (4, 24, 1030, 384),

@@ -7,10 +7,14 @@ probe at each phase boundary of `fxp_gemm_tc_kernel` (thread 0 of each
 block writes %globaltimer, in ns: start, k loop done, warps' tiles
 summed, split-K adds issued, semaphore passed, last block done) and one
 copy that returns right after the k loop, then prints, for the raw int8
-GEMM at M 32 x K 5120 x N 5120 and the wide mode at decode shapes, the
-percentiles of each phase's end over the blocks (µs from the first
-block's start), the k loop's own length per block, and the profiler's
-kernel time of the shipped kernel and of the k loop alone. The probes
+and the raw packed FxP4 GEMM at M 32 x K 5120 x N 5120, the wide mode at
+decode shapes, the packed mode at Qwen2.5-14B's w1 (fused SiLU) and the
+packed expert bank at DeepSeekMoE-16B's decode shape (64 experts x 4
+queue rows, 2048 -> 1408, 4 tokens routed top-6), the percentiles of
+each phase's end over the blocks (µs from the first block's start; an
+unsplit grid ends its blocks after "tiles summed"), the k loop's own
+length per block, and the profiler's kernel time of the shipped kernel
+and of the k loop alone. The probes
 and the early return change nothing else; the copies' results are not
 used. The copies are made by inserting text at anchors of the source
 (`variants` raises when an anchor is not found exactly once;
@@ -41,7 +45,8 @@ _RING = "  __syncthreads();                         // the ring is free\n"
 _SUMMED = "  if (gridDim.y == 1) {\n"
 _ADDS = "  // the block's adds, ordered by the barrier"
 _LAST = "  if (!is_last) return;\n  // every load"
-_END = "  for (int j = 0; j < kRows; ++j) store(j, total[j]);\n}\n"
+_END = ("  for (int j = 0; j < kRows; ++j) store(j, total[j]);\n"
+        "  finish();\n}\n")
 _LOOP_ONLY = ("  { int s_ = 0;\n    for (int p = 0; p < kPlanes<T>; ++p)\n"
               "    for (int i = 0; i < 4; ++i)\n"
               "    for (int nt = 0; nt < NT; ++nt)\n"
@@ -125,29 +130,49 @@ def kernel_ms(fn, iters=20, tries=3):
     return float("nan")
 
 
+def cases(dev, gen):
+    """(label, call) of each GEMM the timeline takes apart."""
+    def codes(shape, q, dtype=torch.int8):
+        return torch.randint(-q, q + 1, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    x, w = codes((32, 5120), 127), codes((5120, 5120), 127)
+    yield "M 32 K 5120 N 5120 int8 raw", lambda: fx.fxp_gemm_codes(x, w)
+    xp, wp = codes((32, 5120), 7), codes((5120, 2560), 127)
+    yield ("M 32 K 5120 N 5120 packed FxP4 raw",
+           lambda: fx.fxp4_gemm_packed(xp, wp))
+    for n in (5120, 13824):
+        xw, ww = codes((4, 5120), 32767, torch.int16), codes(
+            (5120, n), 32767, torch.int16)
+        sw = torch.rand((n,), generator=gen, device=dev) * 1e-9
+        yield (f"M 4 K 5120 N {n} int16",
+               lambda xw=xw, ww=ww, sw=sw: fx.fxp_gemm_fused(xw, ww, sw))
+    x1, w1 = codes((4, 5120), 7), codes((5120, 6912), 127)
+    s1 = torch.rand((13824,), generator=gen, device=dev) * 1e-4
+    yield ("M 4 K 5120 N 13824 packed FxP4 + silu",
+           lambda: fx.fxp_gemm_fused(x1, w1, s1, af="silu", packed=True))
+    e, m, k, n = 64, 4, 2048, 1408
+    xb = torch.zeros((e, m, k), dtype=torch.int8, device=dev)
+    for _ in range(4):                   # 4 tokens, each to 6 experts
+        for ex in torch.randperm(e, generator=gen, device=dev)[:6].tolist():
+            slot = int((xb[ex].abs().sum(-1) > 0).sum())
+            xb[ex, slot] = codes((k,), 7)
+            xb[ex, slot, 0] = 1
+    wb = codes((e, k, n // 2), 127)
+    sb = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-2
+    live = int((xb.reshape(e, -1) != 0).any(-1).sum())
+    yield (f"bank E {e} M {m} K {k} N {n} packed FxP4, {live} experts "
+           "routed", lambda: fx.fxp_gemm_fused_batched(xb, wb, sb,
+                                                         packed=True))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     libs = {name: build(name, src) for name, src in variants().items()}
     shipped = kb.library("fxp_gemm", fx._SIGNATURES)
-    gen = torch.Generator(device=dev).manual_seed(0)
     workspace = fx._workspace
-    for m, k, n, dtype in ((32, 5120, 5120, torch.int8),
-                           (4, 5120, 5120, torch.int16),
-                           (4, 5120, 13824, torch.int16)):
-        q = 127 if dtype == torch.int8 else 32767
-        x = torch.randint(-q, q + 1, (m, k), generator=gen, device=dev,
-                          dtype=dtype)
-        w = torch.randint(-q, q + 1, (k, n), generator=gen, device=dev,
-                          dtype=dtype)
-        scale = torch.rand((n,), generator=gen, device=dev) * 1e-9
-
-        def run():
-            if dtype == torch.int8:
-                return fx.fxp_gemm_codes(x, w)
-            return fx.fxp_gemm_fused(x, w, scale)
-        label = f"M {m} K {k} N {n} {str(dtype)[6:]}"
+    for label, run in cases(dev, torch.Generator(device=dev).manual_seed(0)):
         times = {}
         for name, lib in (("shipped", shipped),
                           ("k loop alone", libs["loop_only"])):
