@@ -8,13 +8,14 @@ Phases, one line each, any failure exits non-zero before the last line:
                 at once;
   3. kernels  — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes, with its time, the plain
-                version's time and its bound: the GEMM (bit-equal) at the
-                dense projections, on int8 (the __dp4a walk), on packed
-                FxP4 weights and on FxP16 codes in int16 (both on the
-                tensor cores; the wide mode beside torch.matmul of the
+                version's time and its bound: the GEMM (bit-equal, every
+                mode on the tensor-core core) at both families' dense
+                projections, on int8, on packed FxP4 weights and on FxP16
+                codes in int16 (the wide mode beside torch.matmul of the
                 codes in f32, also at codes at the ends of int16), and,
-                batched over 64 experts, at the MoE banks, int8 (the walk)
-                and packed FxP4 (the tensor cores); the raw code GEMMs
+                batched over 64 experts, at the MoE banks, int8 and packed
+                FxP4; every GEMM window holds a record of the core for
+                each call; the raw code GEMMs
                 (bit-equal, all on the tensor cores: int8 beside
                 torch._int_mm, int16, packed FxP4); the float attention
                 (within 1%) at g 5 and g 1, and at long rows whose score
@@ -191,27 +192,37 @@ def bound_ms(nbytes: float, ops: float, ops_rate: float, *more):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def held_all(what, win):
+    """Fail unless the last profiler window of `what` held a record of
+    the kernel for each of its calls."""
+    if win["held"] != win["iters"]:
+        fail(f"{what}: {win['held']} records of fxp_gemm_tc_kernel for "
+             f"{win['iters']} calls")
+
+
 def gemm_phase(dev, gen, packed=False):
-    """The fused GEMM at the full-width model's shapes, on int8 codes or
+    """The fused GEMM at the full-width models' shapes, on int8 codes or
     (`packed`) on FxP4 codes with nibble-packed weights [K, N/2] bytes,
-    whose bytes bound counts half the int8 weight bytes. Packed weights
-    must be bit-equal to the plain version, with the AF too. Each mode's
-    time counts its own kernel's records: the __dp4a walk's for int8
-    codes, the tensor-core core's for packed weights."""
+    whose bytes bound counts half the int8 weight bytes: bit-equal to the
+    plain version, with the AF too. Each time counts the tensor-core
+    core's records, and each window must hold one per call."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused, fxp_gemm_fused_plain)
-    # (M, K, N, af) of the full-width model
+    # (M, K, N, af): Qwen2.5-14B's, then DeepSeekMoE-16B's dense GEMMs
     shapes = [(SLOTS, 5120, 5120, None),       # wq, wo
               (SLOTS, 5120, 1024, None),       # wk, wv
               (SLOTS, 5120, 13824, "silu"),    # w1 + fused silu
               (SLOTS, 5120, 13824, None),      # w3
               (SLOTS, 13824, 5120, None),      # w2
               (SLOTS, 5120, 152064, None),     # lm_head
-              (16, 5120, 5120, None)]          # a prefill chunk
+              (16, 5120, 5120, None),          # a prefill chunk
+              (SLOTS, 2048, 2048, None),       # moe q, k, v, o
+              (SLOTS, 2048, 2816, None),       # moe shared w1, w3
+              (SLOTS, 2816, 2048, None),       # moe shared w2
+              (SLOTS, 2048, 102400, None)]     # moe lm_head
     qa = 7 if packed else 127
     label = "fxp_gemm_fused packed FxP4" if packed else "fxp_gemm_fused"
-    record = "fxp_gemm_tc_kernel" if packed else "fxp_gemm_fused_kernel"
-    rows, worst = [], 0.0
+    rows = []
     for m, k, n, af in shapes:
         x = torch.randint(-qa, qa + 1, (m, k), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -228,34 +239,25 @@ def gemm_phase(dev, gen, packed=False):
             return fxp_gemm_fused_plain(x, w, scale, af=af, packed=packed)
         got, ref = run(), plain()
         torch.cuda.synchronize()
-        if af is None or packed:
-            if not torch.equal(got, ref):
-                fail(f"{label} {m}x{k}x{n}+{af}: not bit-equal to plain "
-                     f"(max |err| {(got - ref).abs().max().item()})")
-            err = 0.0
-        else:
-            # same f32 operations in the same order: at most 1 ulp apart
-            err = (got - ref).abs().max().item()
-            ulp = torch.finfo(torch.float32).eps * ref.abs().max().item()
-            if err > ulp:
-                fail(f"{label} {m}x{k}x{n}+{af}: max |err| {err} > 1 ulp "
-                     f"({ulp})")
-        worst = max(worst, err)
+        if not torch.equal(got, ref):
+            fail(f"{label} {m}x{k}x{n}+{af}: not bit-equal to plain "
+                 f"(max |err| {(got - ref).abs().max().item()})")
         win = {}
-        ms = timed(run, 20, record, win)
+        ms = timed(run, 20, "fxp_gemm_tc_kernel", win)
+        held_all(f"{label} {m}x{k}x{n}+{af}", win)
         call_ms = cuda_ms(run, 20)
         pms = timed(plain, 3)
         nbytes = m * k + w.numel() + 4 * n + 4 * m * n
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS_PER_S)
         rows.append(dict(m=m, k=k, n=n, af=af, ms=ms, plain_ms=pms,
-                         bound_ms=bms, bound_by=by, max_abs_err=err,
+                         bound_ms=bms, bound_by=by, max_abs_err=0.0,
                          call_ms=call_ms, **win))
         print(f"kernel {label} M={m} K={k} N={n} af={af}: "
-              f"{ms:.4f} ms on the device, {call_ms:.4f} ms per wrapper "
-              f"call (plain {pms:.4f} ms, bound {bms:.4f} ms by "
-              f"{by}, {100 * bms / ms:.1f}% of bound), max|err| {err}",
-              flush=True)
-    return rows, worst
+              f"{ms:.4f} ms on the device ({win['held']} of {win['iters']} "
+              f"records), {call_ms:.4f} ms per wrapper call (plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"{100 * bms / ms:.1f}% of bound), bit-equal", flush=True)
+    return rows
 
 
 def code_gemm_phase(dev, gen):
@@ -292,6 +294,7 @@ def code_gemm_phase(dev, gen):
             fail(f"{name} ({what}): not bit-equal to plain")
         win = {}
         ms = timed(lambda: fn(x, w), 20, record, win)
+        held_all(f"{name} ({what})", win)
         call_ms = timed(lambda: fn(x, w), 20)
         pms = timed(lambda: plain(x, w), 3)
         kk = x.shape[1]
@@ -337,13 +340,14 @@ def batched_gemm_phase(dev, gen):
     slots per expert at decode, 16 per prefill chunk: a queue holds at
     most one row per token; silu not fused, as the MoE path calls it):
     bit-equal to its plain per-expert loop. At decode 4 tokens x top-6
-    fill 24 of the 64 x 4 rows; the kernel skips the products of zero
-    rows and the weight bytes of experts with none, so the bound counts
-    the weights of the experts this input routes to. The last shape fills
-    every row: the whole bank is read."""
+    fill 24 of the 64 x 4 rows; the kernel's blocks of experts no token
+    routes to read no weight bytes, so the bound counts the weights of
+    the experts this input routes to. The last shape fills every row:
+    the whole bank is read. -> the decode w1 bank's row."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused_batched, fxp_gemm_fused_batched_plain)
     e, top_k = 64, 6
+    first = None
     for m, k, n, tokens in ((SLOTS, 2048, 1408, SLOTS),
                             (SLOTS, 1408, 2048, SLOTS),
                             (16, 2048, 1408, 16),
@@ -358,8 +362,10 @@ def batched_gemm_phase(dev, gen):
         if not torch.equal(got, ref):
             fail(f"fxp_gemm_fused batched E={e} M={m} K={k} N={n}: not "
                  "bit-equal to the per-expert loop")
+        win = {}
         ms = timed(lambda: fxp_gemm_fused_batched(x, w, scale), 20,
-                   "fxp_gemm_fused_kernel")
+                   "fxp_gemm_tc_kernel", win)
+        held_all(f"fxp_gemm_fused batched E={e} M={m} K={k} N={n}", win)
         pms = timed(lambda: fxp_gemm_fused_batched_plain(
             x, w, scale.reshape(e, n)), 2)
         active = int((x.reshape(e, -1) != 0).any(-1).sum())
@@ -367,12 +373,17 @@ def batched_gemm_phase(dev, gen):
         nbytes = e * m * k + active * k * n + 4 * e * n + 4 * e * m * n
         bms, by = bound_ms(nbytes, 2.0 * filled * k * n, INT8_OPS_PER_S)
         occupancy = ("all queues full" if tokens is None else
-                     f"{tokens} tokens x top-{top_k}: {filled} filled rows "
-                     f"in {active} experts")
+                     f"{tokens} tokens x top-{top_k}") + (
+                         f": {filled} filled rows in {active} routed experts")
         print(f"kernel fxp_gemm_fused batched E={e} M={m} K={k} N={n} "
               f"({occupancy}): {ms:.4f} ms on the device (plain loop "
               f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f}% of bound), bit-equal", flush=True)
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         max_abs_err=0.0, **win,
+                         shape=f"E={e} M={m} K={k} N={n} ({occupancy})")
+    return first
 
 
 def wide_gemm_phase(dev, gen):
@@ -410,6 +421,7 @@ def wide_gemm_phase(dev, gen):
                  f"plain (max |err| {(got - ref).abs().max().item()})")
         win = {}
         ms = timed(run, 20, "fxp_gemm_tc_kernel", win)
+        held_all(f"fxp_gemm_fused wide {m}x{k}x{n}+{af}", win)
         pms = timed(lambda: fxp_gemm_fused_plain(x, w, scale, af=af), 2)
         xf, wf = x.float(), w.float()
         lib_ms = timed(lambda: torch.matmul(xf, wf), 20)
@@ -498,14 +510,16 @@ def packed_batched_gemm_phase(dev, gen):
                  "not bit-equal to the per-expert loop")
         win = {}
         ms = timed(run, 20, "fxp_gemm_tc_kernel", win)
+        held_all(f"fxp_gemm_fused batched packed E={e} M={m} K={k} N={n}",
+                 win)
         pms = timed(plain, 2)
         active = int((x.reshape(e, -1) != 0).any(-1).sum())
         filled = int((x != 0).any(-1).sum())
         nbytes = e * m * k + active * k * n // 2 + 4 * e * n + 4 * e * m * n
         bms, by = bound_ms(nbytes, 2.0 * filled * k * n, INT8_OPS_PER_S)
         occupancy = ("all queues full" if tokens is None else
-                     f"{tokens} tokens x top-{top_k}: {filled} filled rows "
-                     f"in {active} experts")
+                     f"{tokens} tokens x top-{top_k}") + (
+                         f": {filled} filled rows in {active} routed experts")
         print(f"kernel fxp_gemm_fused batched packed FxP4 E={e} M={m} K={k} "
               f"N={n} ({occupancy}): {ms:.4f} ms on the device (plain loop "
               f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
@@ -866,8 +880,7 @@ def check_fleet_phase(dev):
 
 
 #: each kernel wrapper's name and the names of its device records
-RECORDS = {"fxp_gemm_fused": ("fxp_gemm_fused_kernel",
-                              "fxp_gemm_tc_kernel"),
+RECORDS = {"fxp_gemm_fused": "fxp_gemm_tc_kernel",
            "paged_attention_float": "paged_attention_kernel",
            "cordic_af": "cordic_af_kernel",
            "cordic_softmax": "cordic_softmax_kernel",
@@ -1003,10 +1016,6 @@ def serve_phase(dev, arch, policy_name):
     launches = dict(launch_counts())
     launches.update({f"fxp_gemm_fused:{m}": n
                      for m, n in gemm_mode_counts().items()})
-    # the int8-code kernels: the dense entry and the expert banks
-    launches["fxp_gemm_fused:int8 codes"] = (launches["fxp_gemm_fused:int8"]
-                                             + launches[
-                                                 "fxp_gemm_fused:batched"])
     serve_peak = torch.cuda.max_memory_allocated() / gib
 
     if len(finished) != len(reqs):
@@ -1211,15 +1220,15 @@ def main():
           f"(nvcc sm_90a, in parallel)", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    gemm_rows, gemm_err = gemm_phase(dev, gen)
+    gemm_rows = gemm_phase(dev, gen)
     wide_rows = wide_gemm_phase(dev,
                                 torch.Generator(device=dev).manual_seed(8))
     packed_bank = packed_batched_gemm_phase(
         dev, torch.Generator(device=dev).manual_seed(9))
-    packed_rows, _ = gemm_phase(dev, torch.Generator(device=dev).manual_seed(5),
-                                packed=True)
+    packed_rows = gemm_phase(dev, torch.Generator(device=dev).manual_seed(5),
+                             packed=True)
     code_rows = code_gemm_phase(dev, torch.Generator(device=dev).manual_seed(6))
-    batched_gemm_phase(dev, torch.Generator(device=dev).manual_seed(2))
+    bank = batched_gemm_phase(dev, torch.Generator(device=dev).manual_seed(2))
     attn = attention_phase(dev, torch.Generator(device=dev).manual_seed(1))
     attn_int = attention_int_phase(
         dev, torch.Generator(device=dev).manual_seed(7))
@@ -1239,7 +1248,6 @@ def main():
         torch.cuda.empty_cache()
 
     w1 = next(r for r in gemm_rows if r["af"] == "silu")
-    w1["max_abs_err"] = gemm_err
     pw1 = next(r for r in packed_rows if r["af"] == "silu")
     ww1 = next(r for r in wide_rows if r["af"] == "silu")
     gemm_src = "src/repro_torch/csrc/fxp_gemm.cu"
@@ -1248,11 +1256,16 @@ def main():
     attn_ref = "src/repro/kernels/paged_attention/paged_attention.py"
     kernels = [
         kernel_entry("fxp_gemm_fused", gemm_src, f"{gemm_ref}:158", w1,
-                     launches, "deepseek_moe_16b/fxp8",
-                     counter="fxp_gemm_fused:int8 codes",
-                     call_ms=w1["call_ms"],
+                     launches, "qwen2_5_14b/fxp8",
+                     counter="fxp_gemm_fused:int8", call_ms=w1["call_ms"],
                      shape=f"M={w1['m']} K={w1['k']} N={w1['n']} +silu "
                            "(Qwen2.5-14B w1), int8 codes"),
+        kernel_entry("fxp_gemm_fused_batched", gemm_src, f"{gemm_ref}:158",
+                     bank, launches, "deepseek_moe_16b/fxp8",
+                     counter="fxp_gemm_fused:batched",
+                     shape=bank["shape"] + ", int8 codes x int8 banks "
+                           "(fxp_gemm_fused_pallas per expert, "
+                           "src/repro/kernels/dispatch.py:309)"),
         kernel_entry("fxp_gemm_fused_packed", gemm_src, f"{gemm_ref}:158",
                      pw1, launches, "qwen2_5_14b/edge4",
                      counter="fxp_gemm_fused:packed", call_ms=pw1["call_ms"],

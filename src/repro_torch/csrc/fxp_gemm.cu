@@ -11,16 +11,16 @@
 // the plain version (for int8 codes while K * 127^2 < 2^31).
 //
 // Which mode runs where:
-//  * the __dp4a walk (fxp_gemm_fused_kernel): int8 codes, dense
-//    (fxp_gemm_fused) and the MoE expert banks (fxp_gemm_fused_batched:
-//    A [E, M, K], B [E, K, N], scale [E, N], out [E, M, N], the grid's z
-//    axis walking (expert, row tile), one launch for the bank);
-//  * the tensor-core core (tc::fxp_gemm_tc_kernel): packed FxP4 weights,
-//    dense (fxp_gemm_fused_packed) and expert banks
-//    (fxp_gemm_fused_batched_packed); codes wider than 8 bits (FxP12/16
-//    in int16: fxp_gemm_fused_wide); and the raw code GEMMs, which write
-//    the int32 sums with no epilogue (fxp_gemm_codes_int8 on int8 codes
-//    or packed FxP4 weights, fxp_gemm_codes_int16);
+//  * the tensor-core core (tc::fxp_gemm_tc_kernel), every fused mode:
+//    int8 codes, dense (fxp_gemm_fused) and MoE expert banks
+//    (fxp_gemm_fused_batched: A [E, M, K], B [E, K, N], scale [E, N],
+//    out [E, M, N], one launch for the bank); packed FxP4 weights, dense
+//    (fxp_gemm_fused_packed) and banks (fxp_gemm_fused_batched_packed);
+//    codes wider than 8 bits (FxP12/16 in int16: fxp_gemm_fused_wide);
+//    and the raw code GEMMs, which write the int32 sums with no epilogue
+//    (fxp_gemm_codes_int8 on int8 codes or packed FxP4 weights,
+//    fxp_gemm_codes_int16). Each mode is its own instantiation of one
+//    template;
 //  * a plain tiled int32 multiply-add (gemm_codes_wide_kernel): raw
 //    int32 codes. As in the reference, the caller owns the overflow-free
 //    bound K * qmax^2 < 2^31 past 8 bits.
@@ -28,33 +28,12 @@
 // What bounds them: at decode M is the slot count (4), so every weight
 // byte is used M times — about 2M integer operations per byte, far below
 // the card's ~590 int8 operations per byte of memory bandwidth. Every
-// mode is bound by reading B once (its bytes over 3.35 TB/s); packed FxP4
-// weights halve those bytes. A __dp4a walk on the CUDA cores cannot reach
-// that bound at the raw GEMM's 32 rows (M 32 x 5120 x 5120 needs 210 M
-// dp4a, ~14 us at 64 a clock per SM, against 7.8 us for B's bytes), nor
-// could its packed mode (a lane's four loads in flight, then the nibbles
-// unpacked on the CUDA cores, a block's A slice staged and its tile
-// reduced with shared-memory atomics over twice the columns).
-//
-// The walk:
-//  * B streams through once, coalesced: a warp reads 128 consecutive bytes
-//    of a row (4 columns per lane), four rows at a time; four __byte_perm
-//    pairs transpose the 4x4 byte tile so that each column's four k values
-//    share a word, and __dp4a multiplies it with four packed activation
-//    codes from shared memory (the whole A slice is staged once per block).
-//  * Decode has few column tiles (N/128), so K is split across blocks to
-//    fill the 132 SMs: each block reduces its eight warps in shared memory,
-//    adds its partial tile into an int32 workspace with atomics (exact in
-//    any order), and the last block to arrive at a tile — counted by a
-//    per-tile semaphore — applies the epilogue. One launch, as on the TPU.
-//  * Ragged edges are masked (zero codes contribute nothing), never padded.
-//  * Expert banks only (a second instantiation, so the dense kernel
-//    compiles as before): a row of zero codes adds nothing, so a block
-//    skips the products of the rows its staged A slice holds only zeros
-//    in, and when all its rows are zero, its B loads too. At decode 4
-//    tokens route to at most 24 of 64 experts: the unfilled queue slots
-//    cost no products, and an expert no token routes to costs no weight
-//    bytes.
+// mode is bound by reading B once (its bytes over 3.35 TB/s; a bank, the
+// bytes of the experts its tokens route to); packed FxP4 weights halve
+// those bytes. What keeps the small shapes from that bound is the fixed
+// cost of a launch, of a block and of splitting K across blocks; the
+// large ones stream B at what the card gives four-stage rings of copies
+// (deeper rings were measured no faster).
 //
 // The tensor-core core:
 //  * mma.sync m16n8k32 on s8/u8 operands with int32 accumulators, the
@@ -102,43 +81,48 @@
 //    16 * 8 * 128 * 32768 = 2^29 in a block's int32 accumulator). The
 //    columns then sit where an int8 lane's do, so the MMAs (s8.s8) and
 //    the map from accumulators to output columns are the int8 codes'.
-//    Over a sign extension to s8 (an xor, an add and an xor per word)
-//    this halves the unpacking; over unsigned nibbles (c + 8 on u8.s8,
-//    then 8 * sum_k a subtracted) it needs no row sums carried through
-//    the K split. A packed block has eight warps, two to each group of
-//    64 of its 256 columns, so that a stage's unpacking is shared as an
-//    int8 block's transposes are and its epilogue owns one column a
-//    thread.
-//  * Expert banks (packed): the grid's z axis walks (expert, row tile),
-//    and A, B, scale, out and the workspace are offset per expert. A block
-//    whose A slice holds only zero codes (an expert no token routes to:
-//    at decode most of the 64) issues no copies and no products; its tile
-//    is zero and it goes straight to its epilogue.
-//  * K is split across blocks to fill the SMs at decode's few column
-//    tiles, up to two blocks per SM (one for packed weights' 32-row
-//    tiles, whose 256 threads hold over half an SM's registers; more
-//    would wait for a second wave):
-//    the warps' partial tiles are summed in shared memory, each block adds
-//    its tile into a workspace with atomics (int32; int64 for int16
-//    codes, whose unsigned long long atomics wrap exactly for signed
-//    values), and the last block of a tile, counted by a semaphore,
-//    applies the epilogue. The epilogue is bound by latency, not by
-//    bandwidth: each thread owns one column, its scale read before the k
-//    loop, and issues all its loads before its first store; the fused
-//    modes then stage the scaled sums in shared memory and apply the AF
-//    in one rolled loop over the tile's rows below M (the CORDIC code
-//    inlined once, not once per element a thread owns). At the raw GEMM's
-//    32 rows (240 blocks) streaming B takes ~10 us and the split's tail
-//    (the adds, the semaphore, the last block's read and write) ~5.
+//    A packed block has eight warps, two to each group of 64 of its 256
+//    columns, so that a stage's unpacking is shared as an int8 block's
+//    transposes are and its epilogue owns one column a thread.
+//  * Dense products: a block per (column tile, K slice, row tile). K is
+//    split across blocks to fill the SMs at decode's few column tiles
+//    (the wrapper's k_split: about one block per SM for int8 codes and
+//    packed 32-row tiles, two for the rest, as measured): the warps'
+//    partial tiles are summed in shared memory, each block adds its tile
+//    into a workspace with atomics (int32; int64 for int16 codes, whose
+//    unsigned long long atomics wrap exactly for signed values), and the
+//    last block of a tile, counted by a semaphore, applies the epilogue. The
+//    epilogue is bound by latency, not by bandwidth: each thread owns one
+//    column, its scale read before the k loop, and issues all its loads
+//    before its first store; the fused modes then stage the scaled sums
+//    in shared memory and apply the AF in one rolled loop over the tile's
+//    rows below M (the CORDIC code inlined once, not once per element a
+//    thread owns).
+//  * Expert banks (int8 and packed): a work item is (expert, row tile, K
+//    slice, column tile), and A, B, scale, out and the workspace are
+//    offset per expert. An item first ORs its A slice (16-byte loads);
+//    when the slice holds no code (an expert no token routes to: at
+//    decode 4 tokens x top-6 reach about 21 of 64 experts) it issues no
+//    copies and no products, its tile is zero and it goes straight to its
+//    epilogue, which writes AF(0). Packed banks run one item a block of
+//    the grid. Int8 banks hand their items out: as many blocks as fit on
+//    the card at once each claim the next item from a counter (a zeroed
+//    word after the semaphores) until none is left, so the routed items
+//    spread over the blocks that are free instead of landing where the
+//    grid puts them. tools/gemm_tail_timeline.py times both on
+//    DeepSeekMoE-16B's int8 banks: one H100 run gave the hand-out 2% less
+//    time at the decode bank 2048 -> 1408, 4% more at 1408 -> 2048 and
+//    1-2% less at the prefill and full banks, level over a layer's three
+//    decode banks; what bounds a decode bank is the stream of its routed
+//    items, all in flight at once, and the late start of the last ones.
+//    On packed weights the claiming loop's registers leave two 256-thread
+//    blocks on an SM instead of three, which cost the packed prefill and
+//    full banks about 5%, so packed banks stay on the grid.
 //
 // Not yet: wgmma and TMA (at M <= 32 these shapes are bound by bytes, far
 // below mma.sync's integer rate); a balanced (stream-K) split of K, so
-// that 240 blocks do not leave a fifth of the 132 SMs idle for the second
-// half of the k loop; bulk asynchronous reductions of the split's tiles;
-// a dynamic hand-out of a packed bank's routed tiles (at decode a third
-// of its blocks carry all the weight bytes, and the SMs they land on
-// bound the launch); and the int8 fused and int8 expert-bank modes on the
-// tensor-core core.
+// that a dense grid's last wave does not leave SMs idle for the second
+// half of the k loop; bulk asynchronous reductions of the split's tiles.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -148,14 +132,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // the int32 code GEMM's block
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlockN = 128;       // 32 lanes x 4 columns
-constexpr int kMaxKSplit = 1024;   // K rows per block (A slice in smem)
-
-// what B holds, and how the grid's z axis is read
-constexpr int kDense = 0;          // int8 codes [K, N]
-constexpr int kExpertBank = 1;     // int8 codes [E, K, N], z = (expert, tile)
 
 // 4x4 byte transpose: word j of `r` holds four columns of row j; column
 // c's result word holds rows 0..3 of column c
@@ -169,216 +147,6 @@ __device__ __forceinline__ void transpose4(const unsigned (&r)[4],
   col[1] = static_cast<int>(__byte_perm(t0, t2, 0x7632));
   col[2] = static_cast<int>(__byte_perm(t1, t3, 0x5410));
   col[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));
-}
-
-template <int MT, int kMode>
-__global__ void __launch_bounds__(kThreads)
-fxp_gemm_fused_kernel(const int8_t* __restrict__ A,
-                      const int8_t* __restrict__ B,
-                      const float* __restrict__ scale,
-                      float* __restrict__ out, int* __restrict__ ws,
-                      unsigned* __restrict__ counters, int M, int K, int N,
-                      int kps, int vec, int af, int lv_n, CordicParams cp) {
-  constexpr bool kExperts = kMode == kExpertBank;
-  constexpr int kC = kBlockN / 32;                        // lane columns
-  __shared__ int a_s[MT][kMaxKSplit / 4];
-  __shared__ int tile[MT][kBlockN];
-  __shared__ int is_last;
-  __shared__ unsigned live;                  // bit m: row m0+m has a code
-
-  int m0 = blockIdx.z * MT;
-  if constexpr (kExperts) {
-    // blockIdx.z = expert * (row tiles) + row tile
-    const int m_tiles = (M + MT - 1) / MT;
-    const int expert = blockIdx.z / m_tiles;
-    A += static_cast<size_t>(expert) * M * K;
-    B += static_cast<size_t>(expert) * K * N;
-    scale += static_cast<size_t>(expert) * N;
-    out += static_cast<size_t>(expert) * M * N;
-    ws += static_cast<size_t>(expert) * M * N;
-    m0 = (blockIdx.z - expert * m_tiles) * MT;
-  }
-  const int n0 = blockIdx.x * kBlockN;
-  const int k0 = blockIdx.y * kps;
-  const int k1 = min(K, k0 + kps);
-  const int kw = (k1 - k0 + 3) / 4;          // packed words of this slice
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // stage A[m0:m0+MT, k0:k1] as words of four k-consecutive codes (whole
-  // word loads for the expert banks, whose rows start on a word)
-  if constexpr (kExperts) {
-    if (tid == 0) live = 0;
-    __syncthreads();
-  }
-  const bool a_words = kExperts && K % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(A) % 4 == 0;
-  unsigned rows = 0;
-  for (int i = tid; i < MT * kw; i += kThreads) {
-    const int m = i / kw;
-    const int w = i - m * kw;
-    unsigned packed = 0;
-    if (a_words) {
-      if (m0 + m < M) {
-        packed = __ldg(reinterpret_cast<const unsigned*>(
-                           A + static_cast<size_t>(m0 + m) * K + k0) + w);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + 4 * w + j;
-        const unsigned v = (m0 + m < M && k < k1)
-            ? static_cast<unsigned>(static_cast<uint8_t>(
-                  A[static_cast<size_t>(m0 + m) * K + k]))
-            : 0u;
-        packed |= v << (8 * j);
-      }
-    }
-    a_s[m][w] = static_cast<int>(packed);
-    if (kExperts && packed) rows |= 1u << m;
-  }
-  for (int i = tid; i < MT * kBlockN; i += kThreads) {
-    tile[i / kBlockN][i % kBlockN] = 0;
-  }
-  // expert banks: rows of zero codes contribute exact zeros, so skip their
-  // products, and the B loads of a slice that has no other rows
-  unsigned live_rows = ~0u;
-  if constexpr (kExperts) {
-    rows = __reduce_or_sync(0xffffffffu, rows);
-    if (lane == 0 && rows) atomicOr(&live, rows);
-  }
-  __syncthreads();
-  if constexpr (kExperts) live_rows = live;
-  const int g0 = live_rows ? warp : kw;
-
-  int acc[MT][kC];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[m][c] = 0;
-  }
-
-  const int n = n0 + kC * lane;
-  for (int g = g0; g < kw; g += kWarps) {
-    const int kb = k0 + 4 * g;
-    unsigned r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = kb + j;
-      unsigned word = 0;
-      if (k < k1 && n < N) {
-        const int8_t* row = B + static_cast<size_t>(k) * N;
-        if (vec) {
-          word = __ldg(reinterpret_cast<const unsigned*>(row + n));
-        } else {
-          for (int c = 0; c < 4; ++c) {
-            if (n + c < N) {
-              word |= static_cast<unsigned>(static_cast<uint8_t>(row[n + c]))
-                      << (8 * c);
-            }
-          }
-        }
-      }
-      r[j] = word;
-    }
-    // col[c]: rows kb..kb+3 of lane column c, as four int8 codes
-    int col[kC];
-    transpose4(r, col);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (!kExperts || (live_rows & (1u << m))) {    // uniform block-wide
-        const int a = a_s[m][g];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
-      }
-    }
-  }
-
-  // reduce the eight warps' partial sums in shared memory (exact)
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      if (acc[m][c] != 0) atomicAdd(&tile[m][kC * lane + c], acc[m][c]);
-    }
-  }
-  __syncthreads();
-
-  const bool split = gridDim.y > 1;
-  if (split) {
-    // add this block's partial tile into the workspace, then let the last
-    // block of the tile apply the epilogue
-    for (int i = tid; i < MT * kBlockN; i += kThreads) {
-      const int m = i / kBlockN;
-      const int c = i % kBlockN;
-      if (m0 + m < M && n0 + c < N && tile[m][c] != 0) {
-        atomicAdd(&ws[static_cast<size_t>(m0 + m) * N + n0 + c], tile[m][c]);
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      const unsigned prev =
-          atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
-      is_last = prev == gridDim.y - 1;
-    }
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-  }
-
-  for (int i = tid; i < MT * kBlockN; i += kThreads) {
-    const int m = i / kBlockN;
-    const int c = i % kBlockN;
-    const int row = m0 + m;
-    const int cn = n0 + c;
-    if (row < M && cn < N) {
-      const size_t o = static_cast<size_t>(row) * N + cn;
-      const int total = split ? __ldcg(&ws[o]) : tile[m][c];
-      const float v = __fmul_rn(static_cast<float>(total), scale[cn]);
-      out[o] = apply_af(v, af, cp, lv_n);
-    }
-  }
-}
-
-template <int MT, int kMode>
-cudaError_t launch(const int8_t* a, const int8_t* b, const float* scale,
-                   float* out, int* ws, unsigned* counters, int E, int M,
-                   int K, int N, int kps, int vec, int af, int lv_n,
-                   const CordicParams& cp, cudaStream_t stream) {
-  const int splits = (K + kps - 1) / kps;
-  dim3 grid((N + kBlockN - 1) / kBlockN, splits, E * ((M + MT - 1) / MT));
-  fxp_gemm_fused_kernel<MT, kMode><<<grid, kThreads, 0, stream>>>(
-      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, cp);
-  return cudaGetLastError();
-}
-
-// Row tiles of 4, 8 or 16 rows.
-template <int kMode>
-int dispatch(const int8_t* a, const int8_t* b, const float* scale,
-             float* out, int* ws, unsigned* counters, int E, int M, int K,
-             int N, int kps, int vec, int af, int lv_n,
-             const CordicParams* cp, void* stream) {
-  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || kps <= 0 ||
-      kps > kMaxKSplit || kps % 4 != 0 ||
-      static_cast<long long>(E) * ((M + 15) / 16) > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 4) {
-    return static_cast<int>(launch<4, kMode>(
-        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
-        s));
-  }
-  if (M <= 8) {
-    return static_cast<int>(launch<8, kMode>(
-        a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
-        s));
-  }
-  return static_cast<int>(launch<16, kMode>(
-      a, b, scale, out, ws, counters, E, M, K, N, kps, vec, af, lv_n, *cp,
-      s));
 }
 
 
@@ -723,19 +491,24 @@ __device__ __forceinline__ void k32_step(
   }
 }
 
-// kPacked: B holds FxP4 nibble bytes [K, ldb] (N <= 2 ldb); else codes T
-// [K, N] (ldb = N). kBank: E such products, the grid's z axis walking
-// (expert, row tile), A [E, M, K], B [E, K, ldb], scale [E, N], out and
-// ws [E, M, N].
-template <typename T, int MT, bool kRaw, bool kPacked = false,
-          bool kBank = false>
-__global__ void __launch_bounds__(kThreadsOf<kPacked>)
-fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                   const float* __restrict__ scale, void* __restrict__ out_,
-                   typename Shape<T, MT, kPacked>::Acc* __restrict__ ws,
-                   unsigned* __restrict__ counters, int M, int K, int N,
-                   int ldb, int kps, int vec, int af, int lv_n,
-                   CordicParams cp) {
+// A block's work item: column tile x, K slice y and z (a bank's expert
+// times its row tiles plus the row tile) of gx column tiles and gy slices.
+struct Item {
+  int x, y, z, gx, gy;
+};
+
+// Item `it` of the product. kPacked: B holds FxP4 nibble bytes [K, ldb]
+// (N <= 2 ldb); else codes T [K, N] (ldb = N). kBank: E such products, z
+// walking (expert, row tile), A [E, M, K], B [E, K, ldb], scale [E, N],
+// out and ws [E, M, N]. counters: one semaphore per (z, x) when K is
+// split.
+template <typename T, int MT, bool kRaw, bool kPacked, bool kBank>
+__device__ __forceinline__ void run_item(
+    const Item it, const T* __restrict__ A, const T* __restrict__ B,
+    const float* __restrict__ scale, void* __restrict__ out_,
+    typename Shape<T, MT, kPacked>::Acc* __restrict__ ws,
+    unsigned* __restrict__ counters, int M, int K, int N, int ldb, int kps,
+    int vec, int af, int lv_n, const CordicParams& cp) {
   using S = Shape<T, MT, kPacked>;
   using Acc = typename S::Acc;
   using Out = typename std::conditional<kRaw, int, float>::type;
@@ -746,20 +519,19 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   __shared__ int is_last;
 
   Out* out = static_cast<Out*>(out_);
-  int m0 = blockIdx.z * MT;
+  int m0 = it.z * MT;
   if constexpr (kBank) {
-    // blockIdx.z = expert * (row tiles) + row tile
     const int m_tiles = (M + MT - 1) / MT;
-    const int expert = blockIdx.z / m_tiles;
+    const int expert = it.z / m_tiles;
     A += static_cast<size_t>(expert) * M * K;
     B += static_cast<size_t>(expert) * K * ldb;
     scale += static_cast<size_t>(expert) * N;
     out += static_cast<size_t>(expert) * M * N;
     ws += static_cast<size_t>(expert) * M * N;
-    m0 = (blockIdx.z - expert * m_tiles) * MT;
+    m0 = (it.z - expert * m_tiles) * MT;
   }
-  const int n0 = blockIdx.x * kBN;
-  const int k0 = blockIdx.y * kps;
+  const int n0 = it.x * kBN;
+  const int k0 = it.y * kps;
   const int k1 = min(K, k0 + kps);
   int steps = (k1 - k0 + kBK - 1) / kBK;
   const int tid = threadIdx.x;
@@ -905,7 +677,7 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
       }
     }
   };
-  if (gridDim.y == 1) {
+  if (it.gy == 1) {
 #pragma unroll
     for (int j = 0; j < kRows; ++j) store(j, total[j]);
     finish();
@@ -932,8 +704,8 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   if (tid == 0) {
     asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
     const unsigned prev =
-        atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
-    is_last = prev == gridDim.y - 1;
+        atomicAdd(&counters[it.z * it.gx + it.x], 1u);
+    is_last = prev + 1 == static_cast<unsigned>(it.gy);
     if (is_last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
   }
   __syncthreads();
@@ -949,6 +721,50 @@ fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   finish();
 }
 
+// Whether a launch hands its items out from a counter (int8 expert
+// banks: see the header) or runs one item a block of its grid
+template <bool kPacked, bool kBank>
+constexpr bool kHandOut = kBank && !kPacked;
+
+// The grid's items, or with kHandOut `items` of them claimed in order from
+// the counter after the semaphores (counters[tiles], tiles = items / gy
+// when K is split, else counters[0]), zeroed at launch, by as many blocks
+// as fit on the card at once.
+template <typename T, int MT, bool kRaw, bool kPacked = false,
+          bool kBank = false>
+__global__ void __launch_bounds__(kThreadsOf<kPacked>)
+fxp_gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                   const float* __restrict__ scale, void* __restrict__ out_,
+                   typename Shape<T, MT, kPacked>::Acc* __restrict__ ws,
+                   unsigned* __restrict__ counters, int M, int K, int N,
+                   int ldb, int kps, int vec, int af, int lv_n, int items,
+                   CordicParams cp) {
+  if constexpr (kHandOut<kPacked, kBank>) {
+    const int gx = (N + Shape<T, MT, kPacked>::kBN - 1) /
+                   Shape<T, MT, kPacked>::kBN;
+    const int gy = (K + kps - 1) / kps;
+    unsigned* const next = counters + (gy > 1 ? items / gy : 0);
+    __shared__ int item;
+    for (;;) {
+      __syncthreads();          // the last item is done with shared memory
+      if (threadIdx.x == 0) item = static_cast<int>(atomicAdd(next, 1u));
+      __syncthreads();
+      const int i = item;
+      if (i >= items) return;
+      run_item<T, MT, kRaw, kPacked, kBank>(
+          Item{i % gx, i / gx % gy, i / (gx * gy), gx, gy}, A, B, scale,
+          out_, ws, counters, M, K, N, ldb, kps, vec, af, lv_n, cp);
+    }
+  } else {
+    run_item<T, MT, kRaw, kPacked, kBank>(
+        Item{static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y),
+             static_cast<int>(blockIdx.z), static_cast<int>(gridDim.x),
+             static_cast<int>(gridDim.y)},
+        A, B, scale, out_, ws, counters, M, K, N, ldb, kps, vec, af, lv_n,
+        cp);
+  }
+}
+
 template <typename T, int MT, bool kRaw, bool kPacked, bool kBank>
 cudaError_t launch(const T* a, const T* b, const float* scale, void* out,
                    typename Shape<T, MT, kPacked>::Acc* ws,
@@ -962,10 +778,24 @@ cudaError_t launch(const T* a, const T* b, const float* scale, void* out,
   if (attr != cudaSuccess) return attr;
   dim3 grid((N + S::kBN - 1) / S::kBN, (K + kps - 1) / kps,
             E * ((M + MT - 1) / MT));
+  const int items = static_cast<int>(grid.x * grid.y * grid.z);
+  if constexpr (kHandOut<kPacked, kBank>) {
+    // the blocks resident at once on the card (one card per process)
+    static const int resident = [] {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fxp_gemm_tc_kernel<T, MT, kRaw, kPacked, kBank>,
+          S::kThreads, S::kSmem);
+      return sms * per_sm;
+    }();
+    grid = dim3(resident > 0 && resident < items ? resident : items);
+  }
   fxp_gemm_tc_kernel<T, MT, kRaw, kPacked, kBank>
       <<<grid, S::kThreads, S::kSmem, stream>>>(
           a, b, scale, out, ws, counters, M, K, N, ldb, kps, vec, af, lv_n,
-          cp);
+          items, cp);
   return cudaGetLastError();
 }
 
@@ -1058,25 +888,31 @@ const CordicParams kNoCordic = {};
 
 }  // namespace
 
-// E products in one launch: a [E, M, K], b [E, K, N], scale [E, N],
-// out [E, M, N]; ws [E, M, N] and one counter per (expert, tile), zeroed.
+// int8 codes on the tensor-core core: a [M, K], b [K, N]; kps a multiple
+// of 128, at most 32768; when K is split (kps < K) ws int32 [M, N] and one
+// counter per tile, zeroed; `vec` bit 0 / 1: b's / a's rows are 16-byte
+// aligned.
+extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
+                              const float* scale, float* out, int* ws,
+                              unsigned* counters, int M, int K, int N, int kps,
+                              int vec, int af, int lv_n,
+                              const CordicParams* cp, void* stream) {
+  return tc::dispatch<int8_t, false>(a, b, scale, out, ws, counters, 1, M, K,
+                                     N, N, kps, vec, af, lv_n, cp, stream);
+}
+
+// int8 expert banks on the tensor-core core: a [E, M, K], b [E, K, N],
+// scale [E, N], out [E, M, N]; kps and `vec` as for the dense entry, ws
+// [E, M, N] and one counter per (expert, tile) when K is split.
 extern "C" int fxp_gemm_fused_batched(const int8_t* a, const int8_t* b,
                                       const float* scale, float* out, int* ws,
                                       unsigned* counters, int E, int M, int K,
                                       int N, int kps, int vec, int af,
                                       int lv_n, const CordicParams* cp,
                                       void* stream) {
-  return dispatch<kExpertBank>(a, b, scale, out, ws, counters, E, M, K, N,
-                               kps, vec, af, lv_n, cp, stream);
-}
-
-extern "C" int fxp_gemm_fused(const int8_t* a, const int8_t* b,
-                              const float* scale, float* out, int* ws,
-                              unsigned* counters, int M, int K, int N, int kps,
-                              int vec, int af, int lv_n,
-                              const CordicParams* cp, void* stream) {
-  return dispatch<kDense>(a, b, scale, out, ws, counters, 1, M, K, N, kps,
-                          vec, af, lv_n, cp, stream);
+  return tc::dispatch<int8_t, false, false, true>(
+      a, b, scale, out, ws, counters, E, M, K, N, N, kps, vec, af, lv_n, cp,
+      stream);
 }
 
 // Packed FxP4 weights on the tensor-core core: b holds nibble bytes

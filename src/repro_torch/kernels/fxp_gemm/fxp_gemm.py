@@ -26,15 +26,17 @@ Modes, each its own kernel instantiation (`launches_by_mode` counts them):
                 that arithmetic in plain PyTorch); exact while
                 K * 2^30 < 2^53;
   * batched and batched_packed — the expert banks, int8 or packed.
-Where each runs: the int8 and int8 bank modes walk B with `__dp4a` on the
-CUDA cores (`fxp_gemm_fused_kernel`); the packed, packed bank and wide
-modes and the raw int8, int16 and packed code GEMMs run on the
+Every mode, and the raw int8, int16 and packed code GEMMs, runs on one
 tensor-core core (`fxp_gemm_tc_kernel`): `mma.sync` tiles fed by
 asynchronous copies, the nibbles of packed weights turned into int8
 fragments in registers as 16 times their codes, the factor shifted off
-the exact int32 sum (csrc/fxp_gemm.cu says what bounds each and what its
-design does about it). At decode every one of them is bound by reading the
-weight once.
+the exact int32 sum. The grid splits K across blocks to fill the card
+(`k_split`); a bank's grid walks its experts (an int8 bank's blocks, as
+many as fit on the card, claim its items from a counter), and an item
+whose activation rows hold no code reads no weight bytes
+(csrc/fxp_gemm.cu says what bounds each mode and what its design does
+about it). At decode every
+one of them is bound by reading the weight once.
 The reference's Pallas kernel sums codes wider than 8 bits in f32 in
 XLA's order (int32 only under its `wide_exact` bound K * qmax^2 < 2^31,
 where this port equals it bit for bit); the port's exact sum is within
@@ -68,13 +70,10 @@ __all__ = ["FUSED_AFS", "fxp_gemm_fused", "fxp_gemm_fused_plain",
 FUSED_AFS = KERNEL_AFS
 
 _SMS = 132            # H100 SXM streaming multiprocessors
-_BLOCK_N = 128        # kBlockN in csrc/fxp_gemm.cu (the __dp4a walk)
-_MAX_KPS = 1024       # kMaxKSplit in csrc/fxp_gemm.cu
 _TC_ROW_BYTES = 128   # tc::kRowBytes in csrc/fxp_gemm.cu (the tensor-core
                       # core): a block's columns, 128 int8, 64 int16 or 256
                       # packed FxP4 codes
 _TC_BLOCK_K = 128     # tc::kBK: k rows per stage
-_TC_BLOCKS = 2 * _SMS  # blocks of the core resident at once (two per SM)
 _MAX_KPS_WIDE = 32768  # tc::kMaxKSplitWide: 2 * 128 * 255 * 32768 < 2^31
 _PLAIN_COLS = 16384   # column chunk of the plain product (bounds its f64)
 
@@ -168,42 +167,33 @@ def fxp_gemm_fused_batched_plain(x_codes: torch.Tensor,
 
 
 def _tiles(m: int, packed: bool = False, core=None) -> tuple[int, int]:
-    """(columns per block, row tiles) of a kernel's grid. The tensor-core
-    core (`core` the codes' dtype, int8 or int16; packed weights always
-    run there): a stage row of 128 bytes of columns (128 int8, 64 int16
-    or 256 packed FxP4 codes); tiles of 8, 16 or 32 rows (16 at most for
-    int16 codes). The __dp4a walk (int8 codes): 128 columns; one tile up
-    to 8 rows, else tiles of 16 rows."""
-    if core is not None or packed:
-        wide = core == torch.int16
-        rows = 8 if m <= 8 else 16 if m <= 16 or wide else 32
-        cols = (2 if packed else 1) * _TC_ROW_BYTES // (2 if wide else 1)
-        return cols, -(-m // rows)
-    return _BLOCK_N, 1 if m <= 8 else -(-m // 16)
+    """(columns per block, row tiles) of the tensor-core core's grid, for
+    codes of dtype `core` (int8 when None, or int16) or packed weights: a
+    stage row of 128 bytes of columns (128 int8, 64 int16 or 256 packed
+    FxP4 codes); tiles of 8, 16 or 32 rows (16 at most for int16 codes)."""
+    wide = core == torch.int16
+    rows = 8 if m <= 8 else 16 if m <= 16 or wide else 32
+    cols = (2 if packed else 1) * _TC_ROW_BYTES // (2 if wide else 1)
+    return cols, -(-m // rows)
 
 
 def k_split(m: int, k: int, n: int, experts: int = 1,
             packed: bool = False, core=None) -> int:
-    """K rows per block. The tensor-core core (`core` and `packed` as for
-    `_tiles`; `experts` counts a bank's tiles): as many blocks as fit two
-    to an SM (`_TC_BLOCKS`; a few more would wait for a second wave; one
-    to an SM for packed weights' 32-row tiles, whose 256 threads hold
-    over half an SM's registers), at least 256 rows each, at most
-    `_MAX_KPS_WIDE`, a multiple of a stage's 128 rows.
-    The __dp4a walk: enough blocks to fill the card four times over at
-    decode shapes, at most the staged A slice's rows (`_MAX_KPS`), a
-    multiple of 32 (four rows per warp step, eight warps)."""
+    """K rows per block of the tensor-core core (`core` and `packed` as for
+    `_tiles`; `experts` counts a bank's tiles): about one block per SM for
+    int8 codes (what measured fastest at the paths' decode shapes:
+    tools/gemm_split_sweep.py) and for packed weights' 32-row tiles (whose
+    256 threads hold over half an SM's registers), else as many as fit two
+    to an SM, at least 256 rows each, at most `_MAX_KPS_WIDE`, a multiple
+    of a stage's 128 rows."""
     block_n, m_tiles = _tiles(m, packed, core)
     tiles = -(-n // block_n) * m_tiles * experts
-    if core is not None or packed:
-        resident = _SMS if packed and m > 16 else _TC_BLOCKS
-        splits = max(-(-k // _MAX_KPS_WIDE),
-                     min(max(1, resident // tiles), -(-k // 256)))
-        kps = -(-k // splits)
-        return -(-kps // _TC_BLOCK_K) * _TC_BLOCK_K
-    splits = max(-(-k // _MAX_KPS), min(-(-4 * _SMS // tiles), -(-k // 128)))
+    int8 = not packed and core != torch.int16
+    resident = _SMS if int8 or (packed and m > 16) else 2 * _SMS
+    splits = max(-(-k // _MAX_KPS_WIDE),
+                 min(max(1, resident // tiles), -(-k // 256)))
     kps = -(-k // splits)
-    return min(_MAX_KPS, -(-kps // 32) * 32)
+    return -(-kps // _TC_BLOCK_K) * _TC_BLOCK_K
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -225,20 +215,21 @@ _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                         ctypes.c_int)}
 
 
-def _workspace(x_codes, e, m, k, n, packed, core=None):
-    """(kps, workspace, semaphore pointer): with split K a workspace
-    [E, M, N] (int32; int64 for int16 codes on the tensor-core core) and
-    one int32 semaphore per tile, zeroed; one K slice per tile reads
-    neither."""
+def _workspace(x_codes, e, m, k, n, packed, core=None, handout=False):
+    """(kps, workspace, semaphore pointer), zeroed: with split K a
+    workspace [E, M, N] (int32; int64 for int16 codes) and one int32
+    semaphore per (expert, tile); then, with `handout` (int8 banks), the
+    counter from which the kernel hands out its items."""
     kps = k_split(m, k, n, e, packed, core)
-    if core is not None or packed:
-        assert kps <= _MAX_KPS_WIDE, "a block's int32 plane sums would overflow"
+    assert kps <= _MAX_KPS_WIDE, "a block's int32 plane sums would overflow"
     block_n, m_tiles = _tiles(m, packed, core)
-    tiles = -(-n // block_n) * m_tiles * e
+    split = kps < k
     words = 2 if core == torch.int16 else 1   # int32 words per entry
-    ws_len = words * e * m * n + tiles if kps < k else 1
-    ws = torch.zeros(ws_len, dtype=torch.int32, device=x_codes.device)
-    return kps, ws, (ws[ws_len - tiles:] if kps < k else ws).data_ptr()
+    acc = words * e * m * n * split
+    sems = -(-n // block_n) * m_tiles * e * split + int(handout)
+    ws = torch.zeros(max(1, acc + sems), dtype=torch.int32,
+                     device=x_codes.device)
+    return kps, ws, ws[acc:].data_ptr()
 
 
 def _stream(t):
@@ -254,19 +245,18 @@ def _launch(x_codes, w_codes, scale, af, hr_stages, lv_stages, experts,
             packed=False):
     """One launch over x [E, M, K], w [E, K, N] (or packed bytes [E, K,
     NB]), scale [E, N] (CUDA, int8 codes, checked by the callers) -> f32
-    [E, M, N]: the expert-batched kernel, or for E = 1 without `experts`
-    the single-matrix one; int8 codes on the __dp4a walk, packed weights
-    on the tensor-core core."""
+    [E, M, N] on the tensor-core core: the expert bank, or for E = 1
+    without `experts` the single product."""
     e, m, k = x_codes.shape
     n = scale.numel() // e
     x_codes = x_codes.contiguous()
     w_codes = w_codes.contiguous()
     scale = scale.reshape(e, n).to(torch.float32).contiguous()
     out = torch.empty((e, m, n), dtype=torch.float32, device=x_codes.device)
-    kps, ws, sem = _workspace(x_codes, e, m, k, n, packed)
+    kps, ws, sem = _workspace(x_codes, e, m, k, n, packed,
+                              handout=experts and not packed)
     ldb = w_codes.shape[2]
-    vec = (_tc_vec(x_codes, w_codes) if packed
-           else int(ldb % 4 == 0 and w_codes.data_ptr() % 4 == 0))
+    vec = _tc_vec(x_codes, w_codes)
     lib = library("fxp_gemm", _SIGNATURES)
     ptrs = (x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
             out.data_ptr(), ws.data_ptr(), sem)

@@ -22,9 +22,11 @@ is held within 1% of the output's range. The GEMM's wide mode (int16
 codes, byte planes on the tensor cores) takes the exact integer sum and
 rounds it once to f32, as its plain version does: bit-equal, with and
 without its AF; its packed expert-bank mode is bit-equal to the
-per-expert loop of the packed plain version. The packed modes (dense,
-expert banks and the raw packed GEMM) run on the tensor-core core, whose
-profiler record is `fxp_gemm_tc_kernel`."""
+per-expert loop of the packed plain version. Every fused mode (int8 and
+packed, dense and expert banks) and the raw int8 and packed GEMMs run on
+the tensor-core core, whose profiler record is `fxp_gemm_tc_kernel`; the
+bank tests also route no expert, one and every expert, and launch twice
+with other routing (a semaphore left dirty would show)."""
 import numpy as np
 import pytest
 import torch
@@ -348,24 +350,31 @@ def _kernel_records(fn):
             if getattr(e, "self_device_time_total", 0) > 0}
 
 
-@pytest.mark.parametrize("entry", ["dense", "bank", "raw"])
+@pytest.mark.parametrize("entry", ["dense", "bank", "raw", "int8 dense",
+                                   "int8 bank"])
 def test_packed_calls_run_on_the_tensor_core_core(cuda, entry):
-    """A packed call's kernel record is the tensor-core core's
-    (`fxp_gemm_tc_kernel`), not the __dp4a walk's."""
+    """A packed or int8 call's GEMM record is the tensor-core core's
+    (`fxp_gemm_tc_kernel`) and no other kernel's (beside it only the
+    workspace's zero fill runs)."""
     rng = np.random.default_rng(11)
-    e = 4 if entry == "bank" else 1
+    e = 4 if "bank" in entry else 1
     x = torch.from_numpy(rng.integers(-7, 8, (e, 4, 1024),
                                       dtype=np.int8)).to(cuda)
     w = torch.from_numpy(rng.integers(-128, 128, (e, 1024, 320),
                                       dtype=np.int8)).to(cuda)
     scale = torch.full((e, 640), 1e-3, device=cuda)
+    scale8 = torch.full((e, 320), 1e-3, device=cuda)
     calls = {"dense": lambda: fxp_gemm_fused(x[0], w[0], scale[0],
                                              packed=True),
              "bank": lambda: fxp_gemm_fused_batched(x, w, scale, packed=True),
-             "raw": lambda: fxp4_gemm_packed(x[0], w[0])}
+             "raw": lambda: fxp4_gemm_packed(x[0], w[0]),
+             "int8 dense": lambda: fxp_gemm_fused(x[0], w[0], scale8[0]),
+             "int8 bank": lambda: fxp_gemm_fused_batched(x, w, scale8)}
     names = _kernel_records(calls[entry])
     assert any("fxp_gemm_tc_kernel" in n for n in names), names
-    assert not any("fxp_gemm_fused_kernel" in n for n in names), names
+    others = {n for n in names if "fxp_gemm_tc_kernel" not in n}
+    assert all("fill" in n.lower() or "memset" in n.lower()
+               for n in others), names
 
 
 @pytest.mark.parametrize("e,m,k,n", [(5, 3, 256, 130), (4, 24, 1030, 384),
@@ -392,6 +401,75 @@ def test_batched_gemm_kernel_bit_equal_to_single_launches(cuda, e, m, k, n,
                                                   af=af))
         assert torch.equal(got[i], fxp_gemm_fused_plain(x[i], w[i], scale[i],
                                                         af=af))
+
+
+def _routed_bank(rng, e, m, k, experts, q):
+    """Activation codes [e, m, k] whose queues in `experts` hold 1 to m
+    rows of codes in [-q, q] (a nonzero first code each), the rest zero."""
+    x = np.zeros((e, m, k), dtype=np.int8)
+    for i in experts:
+        rows = int(rng.integers(1, m + 1))
+        x[i, :rows] = rng.integers(-q, q + 1, (rows, k))
+        x[i, :rows, 0] = 1
+    return x
+
+
+def _bank_case(rng, cuda, e, m, k, n, packed, experts):
+    q = 7 if packed else 127
+    x = torch.from_numpy(_routed_bank(rng, e, m, k, experts, q)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128 if packed else -127, 128,
+                                      (e, k, -(-n // 2) if packed else n),
+                                      dtype=np.int8)).to(cuda)
+    scale = torch.from_numpy((rng.random((e, 1, n)) * 1e-3
+                              ).astype(np.float32)).to(cuda)
+    return x, w, scale
+
+
+# (E, M, K, N): DeepSeekMoE-16B's decode bank (K whole; an int8 bank's
+# 704 items handed out to fewer blocks), a bank of 32-row tiles (fewer
+# blocks fit on an SM) and a ragged bank whose K is split (a semaphore per
+# expert and tile, the hand-out's counter after them)
+BANK_SHAPES = [(64, 4, 2048, 1408), (64, 20, 1408, 2048), (6, 4, 1030, 300)]
+
+
+@pytest.mark.parametrize("e,m,k,n", BANK_SHAPES)
+@pytest.mark.parametrize("routed", ["none", "one", "all"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_bank_routing_bit_equal_to_plain(cuda, e, m, k, n, routed, packed,
+                                         af):
+    """Banks with no routed expert (every block empty: AF(0) everywhere),
+    one, and every expert: bit-equal to the per-expert plain loop, one
+    launch each."""
+    rng = np.random.default_rng(e + k + len(routed))
+    experts = {"none": [], "one": [e // 2], "all": range(e)}[routed]
+    x, w, scale = _bank_case(rng, cuda, e, m, k, n, packed, experts)
+    mode = "batched_packed" if packed else "batched"
+    before = fxp_gemm_fused.launches_by_mode[mode]
+    got = fxp_gemm_fused_batched(x, w, scale, af=af, packed=packed)
+    assert fxp_gemm_fused.launches_by_mode[mode] == before + 1
+    assert torch.equal(got, fxp_gemm_fused_batched_plain(
+        x, w, scale, af=af, packed=packed))
+
+
+@pytest.mark.parametrize("e,m,k,n", BANK_SHAPES)
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
+def test_bank_back_to_back_launches_with_other_routing(cuda, e, m, k, n,
+                                                       packed):
+    """Two launches in a row on one stream, the second routing to other
+    experts than the first (and the first's outputs still held): each
+    equals its plain loop, so no semaphore of the first launch's
+    workspace leaks into the second."""
+    rng = np.random.default_rng(e * 3 + k)
+    first = list(range(0, e, 3))
+    second = [i for i in range(e) if i % 3 != 0][:max(1, e // 3)]
+    a = _bank_case(rng, cuda, e, m, k, n, packed, first)
+    b = _bank_case(rng, cuda, e, m, k, n, packed, second)
+    got_a = fxp_gemm_fused_batched(*a, af="silu", packed=packed)
+    got_b = fxp_gemm_fused_batched(*b, af="silu", packed=packed)
+    for got, args in ((got_a, a), (got_b, b)):
+        assert torch.equal(got, fxp_gemm_fused_batched_plain(
+            *args, af="silu", packed=packed))
 
 
 @pytest.mark.parametrize("shape", [(3, 1000), (7, 333), (1, 64, 24, 1408)])

@@ -179,18 +179,19 @@ def test_wrappers_on_cpu_run_the_plain_versions(dtypes):
 def test_core_k_split_stays_under_the_cap(m, k, n, core):
     """The tensor-core core's K split: whole 128-row stages, at most
     32768 rows a block, the slices covering K, one slice where the column
-    tiles alone fill two blocks per SM, else at least a block per SM where
-    K allows it."""
+    tiles alone fill the blocks it aims at (one per SM for int8 codes,
+    two for int16), else at least half of them where K allows it."""
     kps = k_split(m, k, n, core=core)
     block_n, m_tiles = fx._tiles(m, False, core)
     splits = -(-k // kps)
     assert kps % 128 == 0 and 0 < kps <= CAP
     assert (splits - 1) * kps < k <= splits * kps
     tiles = -(-n // block_n) * m_tiles
-    if tiles >= 2 * 132:
+    resident = 132 if core == torch.int8 else 2 * 132
+    if tiles >= resident:
         assert splits == -(-k // CAP)
-    elif k >= 256 * (2 * 132 // tiles):
-        assert tiles * splits >= 132
+    elif k >= 256 * (resident // tiles):
+        assert tiles * splits >= resident // 2
 
 
 def test_tail_timeline_tool_matches_the_kernel_source():
@@ -198,15 +199,16 @@ def test_tail_timeline_tool_matches_the_kernel_source():
     inserting text at anchors of csrc/fxp_gemm.cu, and swaps the package's
     workspace helper for its own: every anchor is still found exactly once
     (`variants` raises otherwise), each of the six phase probes lands in
-    the probed copy, and its workspace helper takes the package's
-    arguments."""
+    the probed copy, the grid copy turns the int8 banks' hand-out off,
+    and its workspace helper takes the package's arguments."""
     path = Path(__file__).resolve().parents[1] / "tools/gemm_tail_timeline.py"
     spec = importlib.util.spec_from_file_location("gemm_tail_timeline", path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     copies = tool.variants()
-    assert set(copies) == {"probed", "loop_only"}
+    assert set(copies) == {"probed", "loop_only", "grid"}
     assert copies["probed"].count("%%globaltimer") == len(tool.PHASES)
     assert copies["loop_only"].count("return; }") == 1
+    assert "kHandOut = false;" in copies["grid"]
     assert (inspect.signature(tool._probe_workspace).parameters.keys()
             == inspect.signature(fx._workspace).parameters.keys())

@@ -71,15 +71,35 @@ def _codes(seed, shape):
 # fxp_gemm_fused
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("af", AFS)
-def test_gemm_plain_matches_pallas(af):
-    m, k, n = 8, 256, 256
-    x, w = _codes(0, (m, k)), _codes(1, (k, n))
-    scale = (np.random.default_rng(2).random((1, n)) * 1e-3
-             ).astype(np.float32)
+# ragged M (row tiles of 8, 16 and 32, and two of 32), K off the 128-row
+# stage and N off the 128-column tile of the tensor-core core
+RAGGED = [(3, 200, 130), (13, 1030, 384), (20, 96, 1001), (33, 300, 257)]
+
+
+@pytest.mark.parametrize(
+    "m,k,n,af", [pytest.param(8, 256, 256, af, id=str(af)) for af in AFS]
+    + [pytest.param(m, k, n, af, id=f"{m}-{k}-{n}-{af}")
+       for m, k, n in RAGGED for af in (None, "silu")])
+def test_gemm_plain_matches_pallas(m, k, n, af):
+    """`fxp_gemm_fused` on int8 CPU tensors (its plain version, which the
+    card's kernel equals bit for bit) equals the reference's fused Pallas
+    kernel in interpret mode: every AF at 8 x 256 x 256, and SiLU or none
+    at ragged shapes, with codes over the whole int8 range and one
+    reference block over the whole product."""
+    if (m, k, n) == (8, 256, 256):
+        x, w = _codes(0, (m, k)), _codes(1, (k, n))
+        scale = (np.random.default_rng(2).random((1, n)) * 1e-3
+                 ).astype(np.float32)
+        blocks = {}
+    else:
+        rng = np.random.default_rng(m * 11 + k + n)
+        x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+        w = rng.integers(-128, 128, (k, n)).astype(np.int8)
+        scale = (rng.random((1, n)) * 1e-4).astype(np.float32)
+        blocks = {"blocks": (m, n, k)}
     want = fxp_gemm_fused_pallas(jnp.asarray(x), jnp.asarray(w),
                                  jnp.asarray(scale), af=af, hr_stages=4,
-                                 lv_stages=5, interpret=True)
+                                 lv_stages=5, interpret=True, **blocks)
     got = fxp_gemm_fused(torch.from_numpy(x), torch.from_numpy(w),
                          torch.from_numpy(scale), af=af)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

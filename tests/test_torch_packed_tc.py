@@ -79,12 +79,14 @@ def test_packed_core_grid_at_the_paths_shapes(e, m, k, n):
 def test_packed_core_split_at_n_1024():
     """wk and wv (N 1024) have four column tiles of 256: the K split
     keeps the core's least slice of 256 rows, 20 slices, 80 blocks (the
-    int8 core's 128 columns give 160); slices of one 128-row stage would
-    fill the card with 160 blocks at twice the split-K adds per output,
-    and were not faster on the card."""
+    int8 core's 128 columns give 14 slices of 384 rows, 112 blocks, about
+    one per SM); slices of one 128-row stage would fill the card with 160
+    blocks at twice the split-K adds per output, and were not faster on
+    the card."""
     kps = k_split(4, 5120, 1024, packed=True)
     assert kps == 256 and -(-5120 // kps) * 4 == 80
-    assert k_split(4, 5120, 1024, core=torch.int8) == 256
+    kps = k_split(4, 5120, 1024, core=torch.int8)
+    assert kps == 384 and -(-5120 // kps) * 8 == 112
 
 
 def _words(tile):

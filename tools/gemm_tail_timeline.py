@@ -1,23 +1,27 @@
-"""Where the time of the tensor-core GEMM core goes, block by block.
+"""Where the time of the tensor-core GEMM core goes, work item by item.
 
     PYTHONPATH=src python tools/gemm_tail_timeline.py
 
 Needs an NVIDIA GPU and nvcc. Builds a copy of csrc/fxp_gemm.cu with a
-probe at each phase boundary of `fxp_gemm_tc_kernel` (thread 0 of each
-block writes %globaltimer, in ns: start, k loop done, warps' tiles
-summed, split-K adds issued, semaphore passed, last block done) and one
-copy that returns right after the k loop, then prints, for the raw int8
-and the raw packed FxP4 GEMM at M 32 x K 5120 x N 5120, the wide mode at
-decode shapes, the packed mode at Qwen2.5-14B's w1 (fused SiLU) and the
-packed expert bank at DeepSeekMoE-16B's decode shape (64 experts x 4
-queue rows, 2048 -> 1408, 4 tokens routed top-6), the percentiles of
-each phase's end over the blocks (µs from the first block's start; an
-unsplit grid ends its blocks after "tiles summed"), the k loop's own
-length per block, and the profiler's kernel time of the shipped kernel
-and of the k loop alone. The probes
-and the early return change nothing else; the copies' results are not
-used. The copies are made by inserting text at anchors of the source
-(`variants` raises when an anchor is not found exactly once;
+probe at each phase boundary of the core's work item, a (column tile, K
+slice, row tile or expert's row tile) of `fxp_gemm_tc_kernel` (thread 0
+writes %globaltimer, in ns: start, k loop done, warps' tiles summed,
+split-K adds issued, semaphore passed, last item of the tile done), one
+copy that returns right after the k loop, and one that runs int8 banks
+on the grid (one item a block) instead of handing their items out. It
+then prints, for the raw int8 and the raw packed FxP4 GEMM at M 32 x K
+5120 x N 5120, the wide mode at decode shapes, the int8 and packed modes
+at Qwen2.5-14B's w1 (fused SiLU) and DeepSeekMoE-16B's expert banks (64
+experts; int8 at decode, 4 tokens routed top-6, for 2048 -> 1408 and
+1408 -> 2048, at a 16-row prefill chunk and with every queue full;
+packed at decode), the percentiles of each phase's end over the items
+(µs from the first item's start; an unsplit grid ends its items after
+"tiles summed"), the k loop's own length per item (and, for a bank, over
+the items that streamed weights), and the profiler's kernel time of the
+shipped kernel, of the k loop alone and, for int8 banks, of the grid.
+The probes and the early return change nothing else; the copies' results
+are not used. The copies are made by inserting text at anchors of the
+source (`variants` raises when an anchor is not found exactly once;
 tests/test_torch_gemm_tc.py checks that on the CPU), and the runs swap
 the package's loaded library and workspace helper for the probed ones.
 """
@@ -37,12 +41,12 @@ PHASES = ("start", "k loop", "tiles summed", "adds issued", "semaphore",
 _GAP = 4096          # int32 words from the semaphores to the probes
 _PROBE = ("  if (threadIdx.x == 0) {{ unsigned long long t_; asm volatile("
           "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); reinterpret_cast<"
-          "unsigned long long*>(counters + " + str(_GAP) + ")[(blockIdx.z * "
-          "gridDim.y * gridDim.x + blockIdx.y * gridDim.x + blockIdx.x) * 8 "
-          "+ {}] = t_; }}\n")
+          "unsigned long long*>(counters + " + str(_GAP) + ")[((it.z * it.gy "
+          "+ it.y) * it.gx + it.x) * 8 + {}] = t_; }}\n")
 _ACC = "  int acc[kPlanes<T>][4][NT][4];\n"
 _RING = "  __syncthreads();                         // the ring is free\n"
-_SUMMED = "  if (gridDim.y == 1) {\n"
+_SUMMED = "  if (it.gy == 1) {\n"
+_HANDOUT = "constexpr bool kHandOut = kBank && !kPacked;"
 _ADDS = "  // the block's adds, ordered by the barrier"
 _LAST = "  if (!is_last) return;\n  // every load"
 _END = ("  for (int j = 0; j < kRows; ++j) store(j, total[j]);\n"
@@ -63,8 +67,9 @@ def _replace(src: str, old: str, new: str) -> str:
 
 
 def variants() -> dict:
-    """{name: source}: the kernel with its phase probes, and the kernel
-    that returns after its k loop."""
+    """{name: source}: the kernel with its phase probes, the kernel that
+    returns after its k loop, and the kernel that runs int8 banks on the
+    grid (one item a block) instead of handing their items out."""
     src = (kb.CSRC / "fxp_gemm.cu").read_text()
     probe = _PROBE.format
     probed = src
@@ -75,7 +80,9 @@ def variants() -> dict:
                       + "}\n")):
         probed = _replace(probed, old, new)
     return {"probed": probed,
-            "loop_only": _replace(src, _RING, _RING + _LOOP_ONLY)}
+            "loop_only": _replace(src, _RING, _RING + _LOOP_ONLY),
+            "grid": _replace(src, _HANDOUT,
+                             "constexpr bool kHandOut = false;")}
 
 
 def build(name: str, src: str):
@@ -93,16 +100,18 @@ def build(name: str, src: str):
     return lib
 
 
-def _probe_workspace(x_codes, e, m, k, n, packed, core=None):
-    """`_workspace` with room for the probes (8 words of 64 bits a block)
-    `_GAP` int32 words past the semaphores' start."""
+def _probe_workspace(x_codes, e, m, k, n, packed, core=None,
+                     handout=False):
+    """`_workspace` with room for the probes (8 words of 64 bits a work
+    item) `_GAP` int32 words past the semaphores' start (the hand-out's
+    counter lies before them)."""
     kps = fx.k_split(m, k, n, e, packed, core)
     block_n, m_tiles = fx._tiles(m, packed, core)
-    blocks = -(-n // block_n) * m_tiles * e * -(-k // kps)
+    items = -(-n // block_n) * m_tiles * e * -(-k // kps)
     words = (2 if core == torch.int16 else 1) * e * m * n
-    ws = torch.zeros(words + _GAP + 16 * blocks, dtype=torch.int32,
+    ws = torch.zeros(words + _GAP + 16 * items, dtype=torch.int32,
                      device=x_codes.device)
-    _probe_workspace.last = (ws, words, blocks)
+    _probe_workspace.last = (ws, words, items)
     return kps, ws, ws[words:].data_ptr()
 
 
@@ -146,23 +155,35 @@ def cases(dev, gen):
         sw = torch.rand((n,), generator=gen, device=dev) * 1e-9
         yield (f"M 4 K 5120 N {n} int16",
                lambda xw=xw, ww=ww, sw=sw: fx.fxp_gemm_fused(xw, ww, sw))
-    x1, w1 = codes((4, 5120), 7), codes((5120, 6912), 127)
     s1 = torch.rand((13824,), generator=gen, device=dev) * 1e-4
+    x8, w8 = codes((4, 5120), 127), codes((5120, 13824), 127)
+    yield ("M 4 K 5120 N 13824 int8 + silu",
+           lambda: fx.fxp_gemm_fused(x8, w8, s1, af="silu"))
+    x1, w1 = codes((4, 5120), 7), codes((5120, 6912), 127)
     yield ("M 4 K 5120 N 13824 packed FxP4 + silu",
            lambda: fx.fxp_gemm_fused(x1, w1, s1, af="silu", packed=True))
-    e, m, k, n = 64, 4, 2048, 1408
-    xb = torch.zeros((e, m, k), dtype=torch.int8, device=dev)
-    for _ in range(4):                   # 4 tokens, each to 6 experts
-        for ex in torch.randperm(e, generator=gen, device=dev)[:6].tolist():
-            slot = int((xb[ex].abs().sum(-1) > 0).sum())
-            xb[ex, slot] = codes((k,), 7)
-            xb[ex, slot, 0] = 1
-    wb = codes((e, k, n // 2), 127)
-    sb = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-2
-    live = int((xb.reshape(e, -1) != 0).any(-1).sum())
-    yield (f"bank E {e} M {m} K {k} N {n} packed FxP4, {live} experts "
-           "routed", lambda: fx.fxp_gemm_fused_batched(xb, wb, sb,
-                                                         packed=True))
+    for e, m, k, n, tokens, packed in (
+            (64, 4, 2048, 1408, 4, False), (64, 4, 1408, 2048, 4, False),
+            (64, 16, 2048, 1408, 16, False), (64, 4, 2048, 1408, None, False),
+            (64, 4, 2048, 1408, 4, True)):
+        q = 7 if packed else 127
+        sb = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-2
+        xb = torch.zeros((e, m, k), dtype=torch.int8, device=dev)
+        if tokens is None:               # every expert's queue full
+            xb = codes((e, m, k), q)
+        for _ in range(tokens or 0):     # each token to 6 experts
+            for ex in torch.randperm(e, generator=gen,
+                                     device=dev)[:6].tolist():
+                slot = int((xb[ex].abs().sum(-1) > 0).sum())
+                if slot < m:
+                    xb[ex, slot] = codes((k,), q)
+                    xb[ex, slot, 0] = 1
+        wb = codes((e, k, n // 2 if packed else n), 127)
+        live = int((xb.reshape(e, -1) != 0).any(-1).sum())
+        yield (f"bank E {e} M {m} K {k} N {n} "
+               f"{'packed FxP4' if packed else 'int8'}, {live} experts "
+               "routed", lambda xb=xb, wb=wb, sb=sb, packed=packed:
+               fx.fxp_gemm_fused_batched(xb, wb, sb, packed=packed))
 
 
 def main():
@@ -174,8 +195,10 @@ def main():
     workspace = fx._workspace
     for label, run in cases(dev, torch.Generator(device=dev).manual_seed(0)):
         times = {}
-        for name, lib in (("shipped", shipped),
-                          ("k loop alone", libs["loop_only"])):
+        runs = [("shipped", shipped), ("k loop alone", libs["loop_only"])]
+        if label.startswith("bank") and "int8" in label:
+            runs.append(("grid", libs["grid"]))
+        for name, lib in runs:
             kb._LIBS["fxp_gemm"] = lib
             times[name] = kernel_ms(run)
         kb._LIBS["fxp_gemm"] = libs["probed"]
@@ -187,23 +210,33 @@ def main():
         finally:
             fx._workspace = workspace
             kb._LIBS["fxp_gemm"] = shipped
-        ws, words, blocks = _probe_workspace.last
-        t = ws[words + _GAP:words + _GAP + 16 * blocks].view(torch.int64)
-        t = t.view(blocks, 8).double().cpu()
+        ws, words, items = _probe_workspace.last
+        t = ws[words + _GAP:words + _GAP + 16 * items].view(torch.int64)
+        t = t.view(items, 8).double().cpu()
         t0 = t[:, 0].min()
-        print(f"{label}: {blocks} blocks; kernel {1e3 * times['shipped']:.2f}"
-              f" us, its k loop alone {1e3 * times['k loop alone']:.2f} us",
-              flush=True)
+        grid = (f", on the grid {1e3 * times['grid']:.2f} us"
+                if "grid" in times else "")
+        print(f"{label}: {items} work items; kernel "
+              f"{1e3 * times['shipped']:.2f} us, its k loop alone "
+              f"{1e3 * times['k loop alone']:.2f} us{grid}", flush=True)
         for i, phase in enumerate(PHASES):
             col = t[:, i][t[:, i] > 0]
             if len(col):
                 us = (col - t0) / 1e3
-                print(f"  {phase:>15}: {len(col):4d} blocks, end at "
+                print(f"  {phase:>15}: {len(col):4d} items, end at "
                       f"{us.min():7.2f} / {us.median():7.2f} / "
                       f"{us.max():7.2f} us (min / median / max)", flush=True)
         loop = (t[:, 1] - t[:, 0]) / 1e3
-        print(f"  k loop per block: {loop.min():.2f} / {loop.median():.2f} "
+        print(f"  k loop per item: {loop.min():.2f} / {loop.median():.2f} "
               f"/ {loop.max():.2f} us", flush=True)
+        long_ = loop > 1.0           # a bank's items that streamed weights
+        if 0 < int(long_.sum()) < items:
+            ends = (t[long_, 2] - t0) / 1e3
+            print(f"  {int(long_.sum())} items with a k loop over 1 us: "
+                  f"loops {loop[long_].min():.2f} / "
+                  f"{loop[long_].median():.2f} / {loop[long_].max():.2f} us,"
+                  f" tiles summed at {ends.min():.2f} / {ends.median():.2f}"
+                  f" / {ends.max():.2f} us", flush=True)
 
 
 if __name__ == "__main__":
