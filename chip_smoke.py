@@ -17,10 +17,16 @@ Phases, one line each, any failure exits non-zero before the last line:
                 FxP4; every GEMM window holds a record of the core for
                 each call; the raw code GEMMs
                 (bit-equal, all on the tensor cores: int8 beside
-                torch._int_mm, int16, packed FxP4); the float attention
-                (within 1%) at g 5 and g 1, and at long rows whose score
-                row lives in a global scratch row; the integer attention
-                (within 1%) at g 5, short and long rows; the CORDIC AF
+                torch._int_mm, int16, packed FxP4); both attentions (a
+                cluster of CTAs per row and KV head; within 1%, finite,
+                one launch a call, two calls bit-identical, the cluster
+                size on each line) at g 5 over 1024-2000 and 4000-12000
+                tokens, the serve paths' width, a sentinel inside a window
+                with an empty window over allocated blocks, and a table
+                whose score rows live in a global scratch row; the float
+                one also on a bf16 pool and at g 1 (beside
+                scaled_dot_product_attention on pre-gathered rows, a
+                yardstick that does less work); the CORDIC AF
                 (bit-equal) at the MoE expert activations; the CORDIC
                 softmax (bit-equal) at the router's rows and a wide row;
   4. check    — reduced Qwen2.5-14B (under FxP8, edge4 and integer
@@ -192,11 +198,11 @@ def bound_ms(nbytes: float, ops: float, ops_rate: float, *more):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def held_all(what, win):
+def held_all(what, win, record="fxp_gemm_tc_kernel"):
     """Fail unless the last profiler window of `what` held a record of
-    the kernel for each of its calls."""
+    the kernel `record` for each of its calls."""
     if win["held"] != win["iters"]:
-        fail(f"{what}: {win['held']} records of fxp_gemm_tc_kernel for "
+        fail(f"{what}: {win['held']} records of {record} for "
              f"{win['iters']} calls")
 
 
@@ -531,13 +537,23 @@ def packed_batched_gemm_phase(dev, gen):
     return first
 
 
-def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5):
+def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5, *,
+                           mb=None, holes=(), empty=()):
     """Pools, tables and metadata for SLOTS rows holding `lengths` cached
-    tokens each, in blocks shuffled over the pool, tables ending in
-    sentinel entries."""
+    tokens each (the query at that position, valid length one more), in
+    blocks shuffled over the pool, tables ending in sentinel entries (`mb`
+    slots; by default two past the longest row's blocks). `holes`: (row,
+    slot) entries set back to the sentinel inside the row's window, as
+    clear_table_entry can leave; `empty`: rows whose valid length is 0
+    over their allocated blocks (an empty window). Returns a dict of the
+    tensors, `nbytes`, the pool bytes the function needs (K, V and their
+    scales at each allocated position of a window; V and its scales over
+    the whole table of an empty window), and for the operation count
+    `scored`, the positions of the windows, and `weighed`, the positions
+    AV weighs (an empty window's: the whole table)."""
     hd, bs = 128, 16
-    mb = -(-(max(lengths) + 1) // bs) + 2      # sentinel tail entries
     need = [-(-(n + 1) // bs) for n in lengths]
+    mb = mb or max(need) + 2
     nb = sum(need) + 8
     perm = torch.randperm(
         nb, generator=torch.Generator().manual_seed(nb)).tolist()
@@ -546,6 +562,8 @@ def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5):
     for b, n_blk in enumerate(need):
         for j in range(n_blk):
             tables[b, j] = next(it)
+    for b, j in holes:
+        tables[b, j] = nb
     shape = (nb, bs, kvh, hd)
     if quant:
         k = torch.randint(-127, 128, shape, generator=gen, device=dev,
@@ -561,70 +579,155 @@ def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5):
     q = torch.randn((SLOTS, kvh, g, hd), generator=gen,
                     device=dev).to(torch.bfloat16)
     lens = torch.tensor(lengths, dtype=torch.int32)
-    meta = torch.stack([lens, lens + 1, lens], dim=1).to(dev)
-    alloc_blocks = sum(need)
-    return (q, k, v, ks, vs, tables.to(dev), meta, alloc_blocks,
-            sum(n + 1 for n in lengths))
+    kvv = lens + 1
+    kvv[list(empty)] = 0
+    meta = torch.stack([lens, kvv, lens], dim=1).to(dev)
+    row = kvh * (hd * k.element_size() + (4 if quant else 0))
+    nbytes = scored = weighed = 0
+    for b, n in enumerate(lengths):
+        alloc = (tables[b] < nb).tolist()
+        if b in empty:
+            nbytes += row * bs * sum(alloc)
+            weighed += mb * bs
+            continue
+        w = n + 1
+        held = sum(min(bs, w - j * bs) for j in range(need[b]) if alloc[j])
+        nbytes += 2 * row * held
+        scored += w
+        weighed += w
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, tables=tables.to(dev),
+                meta=meta, nbytes=nbytes, scored=scored, weighed=weighed)
+
+
+# rows of the attention phases (cached tokens per row): the smoke's
+# 1024-2000 and 4000-12000; the serve paths' own (prompts of 40-64 tokens
+# and 16 generated, in 6-block tables of 16 positions); the layouts a
+# split must keep (a sentinel entry inside row 0's window, row 1 ending
+# mid-block, a one-token row 2, an empty window over row 3's allocated
+# blocks); a table wider than a CTA's shared memory holds at C 8 (a row of
+# 80000 tokens, as Qwen2.5-14B's 131072-token context reaches), whose
+# score rows take the global scratch branch
+ATTN_CASES = {
+    "1024-2000 tokens": dict(lengths=[1024, 1536, 2000, 1200]),
+    "4000-12000 tokens": dict(lengths=[12000, 9000, 11000, 4000]),
+    "serve width": dict(lengths=[64, 72, 80, 70], mb=6),
+    "layouts": dict(lengths=[1500, 1000, 0, 600], holes=[(0, 40)],
+                    empty=[3]),
+    "scores in global scratch": dict(lengths=[80000, 1200, 30000, 500]),
+}
+
+
+def attention_plan(t, integer=False):
+    """(C, scores in global scratch) the wrappers pick for inputs `t`."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        cluster_plan)
+    b, kvh, g, hd = t["q"].shape
+    return cluster_plan(b, kvh, g, hd, t["tables"].shape[1], t["k"].shape[1],
+                        elem_bytes=t["k"].element_size(), integer=integer)
+
+
+def check_attention(what, kernel, plain, record, case, want_scratch, c,
+                    scratch):
+    """Launch `kernel()` twice and hold it against `plain()`: one launch
+    per call, bit-identical outputs, finite, within 1% of the output's
+    range, the score-row branch the case is meant to take. Returns the
+    output, the plain version's and the max |err|."""
+    if scratch != want_scratch:
+        fail(f"{what} ({case}, C={c}): score rows "
+             f"{'in' if scratch else 'not in'} global scratch")
+    before = record.launches
+    got = kernel()
+    again = kernel()
+    if record.launches != before + 2:
+        fail(f"{what} ({case}): {record.launches - before} launches for 2 "
+             "calls")
+    ref = plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        fail(f"{what} ({case}): non-finite output")
+    if not torch.equal(got, again):
+        fail(f"{what} ({case}): two calls on the same inputs differ")
+    err = (got.float() - ref.float()).abs().max().item()
+    # bf16 output, reductions in another order than the plain einsums
+    # (and, integer, a p.v code that flips with them): within 1% of the
+    # output's range
+    tol = 1e-2 * ref.float().abs().max().item()
+    if err > tol:
+        fail(f"{what} ({case}, C={c}): max |err| {err} > {tol}")
+    return got, ref, err, tol
 
 
 def attention_phase(dev, gen):
+    """The float attention kernel (within 1% of its plain version) on the
+    int8 pool with the CORDIC softmax at Qwen2.5-14B's g 5 (4 rows x 8 KV
+    heads x hd 128) over every case of ATTN_CASES, on the bf16 pool with
+    the exact softmax and at DeepSeekMoE-16B's g 1 (16 KV heads) at
+    1024-2000 tokens; each line names the cluster size the wrapper
+    picked. Also times scaled_dot_product_attention on the 1024-2000
+    rows, gathered and dequantized beforehand, as a yardstick that does
+    less work (no paged gather, no dequant, no mask)."""
     from repro_torch.core.activation import softmax_lv_stages
+    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.paged_attention import (
-        paged_attention_float, paged_attention_float_plain, scores_in_scratch)
+        gather_pool_view, paged_attention_float, paged_attention_float_plain)
     result = None
-    short, long_ = [1024, 1536, 2000, 1200], [12000, 9000, 11000, 4000]
-    # (int8 pool + CORDIC softmax, cached tokens per row, KV heads, query
-    # heads per KV head): Qwen2.5-14B's g 5, DeepSeekMoE-16B's g 1; the
-    # long rows' score row does not fit in shared memory
-    for quant, lengths, kvh, g in ((True, short, 8, 5), (False, short, 8, 5),
-                                   (True, long_, 8, 5), (True, short, 16, 1)):
-        cordic_sm = quant
-        (q, k, v, ks, vs, tables, meta, alloc_blocks,
-         valid) = paged_attention_inputs(dev, gen, quant, lengths, kvh, g)
+    runs = [(True, name, 8, 5) for name in ATTN_CASES]
+    runs.insert(1, (False, "1024-2000 tokens", 8, 5))
+    runs.insert(2, (True, "1024-2000 tokens", 16, 1))
+    for quant, case, kvh, g in runs:
+        t = paged_attention_inputs(dev, gen, quant, kvh=kvh, g=g,
+                                   **ATTN_CASES[case])
+        q, k, v, tables, meta = (t[n] for n in ("q", "k", "v", "tables",
+                                                "meta"))
+        c, scratch = attention_plan(t)
         width = tables.shape[1] * k.shape[1]
-        scratch = scores_in_scratch(q.shape[2], q.shape[3], width)
-        if scratch != (lengths is long_):
-            fail(f"paged_attention_float at table width {width}: score row "
-                 f"{'in' if scratch else 'not in'} global scratch")
-        kw = dict(k_scale=ks, v_scale=vs, cordic_softmax=cordic_sm,
-                  hr_stages=4,
-                  lv_stages=softmax_lv_stages(width, "fxp8"),
+        kw = dict(k_scale=t["ks"], v_scale=t["vs"], cordic_softmax=quant,
+                  hr_stages=4, lv_stages=softmax_lv_stages(width, "fxp8"),
                   out_dtype=torch.bfloat16)
-        got = paged_attention_float(q, k, v, tables, meta, **kw)
-        ref = paged_attention_float_plain(q, k, v, tables, meta, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got.float()).all():
-            fail("paged_attention_float: non-finite output")
-        err = (got.float() - ref.float()).abs().max().item()
-        # bf16 output, reductions in another order than the plain einsums:
-        # within 1% of the output's range
-        tol = 1e-2 * ref.float().abs().max().item()
-        body = ("dequant+cordic" if quant else "bf16+exact") + (
-            ", scores in global scratch" if scratch else "")
-        if err > tol:
-            fail(f"paged_attention_float ({body}): max |err| {err} > {tol}")
+        body = "dequant+cordic" if quant else "bf16+exact"
+        _, _, err, tol = check_attention(
+            "paged_attention_float",
+            lambda: paged_attention_float(q, k, v, tables, meta, **kw),
+            lambda: paged_attention_float_plain(q, k, v, tables, meta, **kw),
+            paged_attention_float, case, case == "scores in global scratch",
+            c, scratch)
         win = {}
         ms = timed(lambda: paged_attention_float(q, k, v, tables, meta,
                                                  **kw), 20,
                    "paged_attention_kernel", win)
+        held_all(f"paged_attention_float ({case})", win,
+                 "paged_attention_kernel")
         pms = timed(lambda: paged_attention_float_plain(
             q, k, v, tables, meta, **kw), 3)
         b, kvh, g, hd = q.shape
-        bs = k.shape[1]
-        per_pos = kvh * hd * k.element_size() * 2 + (8 * kvh if quant else 0)
-        nbytes = (alloc_blocks * bs * per_pos + q.numel() * 2
-                  + b * kvh * g * hd * 2 + tables.numel() * 4 + meta.numel()
-                  * 4)
-        ops = 4.0 * valid * kvh * g * hd
+        nbytes = (t["nbytes"] + q.numel() * 2 + b * kvh * g * hd * 2
+                  + tables.numel() * 4 + meta.numel() * 4)
+        ops = 2.0 * (t["scored"] + t["weighed"]) * kvh * g * hd
         bms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
-        print(f"kernel paged_attention_float {body} B={b} KV={kvh} g={g} "
-              f"hd={hd} bs={bs} MB={tables.shape[1]}: {ms:.4f} ms (plain "
-              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
-              f"{100 * bms / ms:.1f}% of bound), max|err| {err} "
-              f"(tol {tol:.4g})", flush=True)
+        print(f"kernel paged_attention_float {body}, {case}, C={c}"
+              f"{', scores in global scratch' if scratch else ''}: B={b} "
+              f"KV={kvh} g={g} hd={hd} bs={k.shape[1]} MB={tables.shape[1]}:"
+              f" {ms:.4f} ms (plain {pms:.4f} ms, bound {bms:.4f} ms by "
+              f"{by}, {100 * bms / ms:.1f}% of bound), max|err| {err} (tol "
+              f"{tol:.4g}), two calls bit-identical", flush=True)
         if result is None:
             result = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                          max_abs_err=err, **win)
+                          max_abs_err=err, cluster=c, **win)
+            kd = (gather_pool_view(k, tables).float()
+                  * gather_pool_view(t["ks"], tables)).to(torch.bfloat16)
+            vd = (gather_pool_view(v, tables).float()
+                  * gather_pool_view(t["vs"], tables)).to(torch.bfloat16)
+            kd, vd = kd.transpose(1, 2), vd.transpose(1, 2)
+            qd = q.reshape(b, kvh * g, 1, hd)
+            sdpa = timed(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, enable_gqa=True), 20)
+            print(f"yardstick scaled_dot_product_attention(enable_gqa=True) "
+                  f"on the {case} rows gathered and dequantized to bf16 "
+                  f"beforehand ([{b}, {kvh * g}, 1, {hd}] x [{b}, {kvh}, "
+                  f"{kd.shape[2]}, {hd}], no mask): {sdpa:.4f} ms, beside "
+                  f"the kernel's {ms:.4f} ms (less work: no paged gather, "
+                  "no dequant, no mask, exact softmax)", flush=True)
+            del kd, vd
     return result
 
 
@@ -639,62 +742,51 @@ INT_ATTN_F32_OPS = 2 + 1 + 2 + 1 + 2 + 1 + 4
 def attention_int_phase(dev, gen):
     """The integer attention kernel at Qwen2.5-14B's g 5 (4 rows x 8 KV
     heads x hd 128), q / sqrt(hd) quantized per head to FxP8 as the serving
-    path does, at 1024-2000 cached tokens and at 4000-12000 (score row in a
-    global scratch row): within 1% of the output range of its plain
-    version."""
+    path does, over every case of ATTN_CASES: within 1% of the output
+    range of its plain version; each line names the cluster size the
+    wrapper picked."""
     from repro_torch.core.fxp import FORMATS, quantize
     from repro_torch.kernels.paged_attention.paged_attention import (
-        paged_attention_int, paged_attention_int_plain, scores_in_scratch)
+        paged_attention_int, paged_attention_int_plain)
     fmt = FORMATS["fxp8"]
     result = None
-    short, long_ = [1024, 1536, 2000, 1200], [12000, 9000, 11000, 4000]
-    for lengths in (short, long_):
-        (q, k, v, ks, vs, tables, meta, alloc_blocks,
-         valid) = paged_attention_inputs(dev, gen, True, lengths, 8, 5)
+    for case, rows in ATTN_CASES.items():
+        t = paged_attention_inputs(dev, gen, True, **rows)
+        q, k, tables = t["q"], t["k"], t["tables"]
         b, kvh, g, hd = q.shape
-        bs = k.shape[1]
+        bs, mb = k.shape[1], tables.shape[1]
         qc, sq = quantize(q.float() / math.sqrt(hd), fmt, axis=3)
-        width = tables.shape[1] * bs
-        scratch = scores_in_scratch(g, hd, width, integer=True)
-        if scratch != (lengths is long_):
-            fail(f"paged_attention_int at table width {width}: score row "
-                 f"{'in' if scratch else 'not in'} global scratch")
-        args = (qc, sq, k, v, ks, vs, tables, meta)
+        c, scratch = attention_plan(t, integer=True)
+        args = (qc, sq, k, t["v"], t["ks"], t["vs"], tables, t["meta"])
         kw = dict(fmt=fmt, out_dtype=torch.bfloat16)
-        got = paged_attention_int(*args, **kw)
-        ref = paged_attention_int_plain(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got.float()).all():
-            fail("paged_attention_int: non-finite output")
-        err = (got.float() - ref.float()).abs().max().item()
-        # exact integer dots; the softmax sums and exponentiates in another
-        # order than torch's, and a flipped p.v code moves the output by a
-        # v step times the row scale: within 1% of the output's range
-        tol = 1e-2 * ref.float().abs().max().item()
-        body = "exact softmax" + (", scores in global scratch" if scratch
-                                  else "")
-        if err > tol:
-            fail(f"paged_attention_int ({body}): max |err| {err} > {tol}")
+        _, _, err, tol = check_attention(
+            "paged_attention_int", lambda: paged_attention_int(*args, **kw),
+            lambda: paged_attention_int_plain(*args, **kw),
+            paged_attention_int, case, case == "scores in global scratch",
+            c, scratch)
         win = {}
         ms = timed(lambda: paged_attention_int(*args, **kw), 20,
                    "paged_attention_int_kernel", win)
+        held_all(f"paged_attention_int ({case})", win,
+                 "paged_attention_int_kernel")
         pms = timed(lambda: paged_attention_int_plain(*args, **kw), 3)
-        per_pos = 2 * kvh * hd + 8 * kvh
-        nbytes = (alloc_blocks * bs * per_pos + qc.numel() + 4 * sq.numel()
+        nbytes = (t["nbytes"] + qc.numel() + 4 * sq.numel()
                   + 2 * b * kvh * g * hd + 4 * tables.numel()
-                  + 4 * meta.numel())
-        bms, by = bound_ms(nbytes, 4.0 * valid * kvh * g * hd,
+                  + 4 * t["meta"].numel())
+        bms, by = bound_ms(nbytes,
+                           2.0 * (t["scored"] + t["weighed"]) * kvh * g * hd,
                            INT8_OPS_PER_S,
-                           (INT_ATTN_F32_OPS * valid * kvh * g,
+                           (INT_ATTN_F32_OPS * t["weighed"] * kvh * g,
                             F32_OPS_PER_S))
-        print(f"kernel paged_attention_int ({body}) B={b} KV={kvh} g={g} "
-              f"hd={hd} bs={bs} MB={tables.shape[1]}: {ms:.4f} ms (plain "
+        print(f"kernel paged_attention_int exact softmax, {case}, C={c}"
+              f"{', scores in global scratch' if scratch else ''}: B={b} "
+              f"KV={kvh} g={g} hd={hd} bs={bs} MB={mb}: {ms:.4f} ms (plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f}% of bound), max|err| {err} "
-              f"(tol {tol:.4g})", flush=True)
+              f"(tol {tol:.4g}), two calls bit-identical", flush=True)
         if result is None:
             result = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                          max_abs_err=err, **win)
+                          max_abs_err=err, cluster=c, **win)
     return result
 
 
@@ -1289,10 +1381,12 @@ def main():
                            "per expert, src/repro/kernels/dispatch.py:309)"),
         kernel_entry("paged_attention_float", attn_src, f"{attn_ref}:172",
                      attn, launches, "deepseek_moe_16b/fxp8",
+                     cluster=attn["cluster"],
                      shape="B=4 KV=8 g=5 hd=128 bs=16, 1024-2000 cached "
                            "tokens, int8 pool, CORDIC softmax"),
         kernel_entry("paged_attention_int", attn_src, f"{attn_ref}:208",
                      attn_int, launches, "qwen2_5_14b/int-attention",
+                     cluster=attn_int["cluster"],
                      shape="B=4 KV=8 g=5 hd=128 bs=16, 1024-2000 cached "
                            "tokens, int8 pool, exact softmax"),
         kernel_entry("cordic_af", "src/repro_torch/csrc/cordic_af.cu",

@@ -21,6 +21,11 @@ the function `models.layers.int8_decode_attention` runs too: int8 q.k
 code dots, the scales folded in the reference's order, the mask, the
 softmax, p x v_scale requantized per row, and the int8 AV dot.
 
+On the card each call is one launch of a thread-block cluster of C CTAs
+per (row, KV head), which split the row's valid window and merge their
+partials in distributed shared memory; `cluster_size` picks C from the
+shapes (and the CTAs the card holds at once), once per shape.
+
 Replaces src/repro/kernels/paged_attention/paged_attention.py::
 paged_attention_float_pallas (both its dequant and its float body) and
 ::paged_attention_int_pallas.
@@ -40,31 +45,100 @@ from ..build import cordic_params, library
 __all__ = ["paged_attention_float", "paged_attention_float_plain",
            "paged_attention_int", "paged_attention_int_plain",
            "gather_pool_view", "masked_attention", "int_attention",
-           "softmax_fns", "scores_in_scratch"]
+           "softmax_fns", "cluster_size", "cluster_plan"]
 
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a block may use
 _MAX_G = 8                      # kMaxG in csrc/paged_attention.cu
+_MAX_HD = 256                   # kMaxHd
+CLUSTER_SIZES = (1, 2, 4, 8)    # portable thread-block cluster sizes
+# the kernels' bodies (enum Body in csrc/paged_attention.cu)
+_BODY_INT, _BODY_INT8_POOL, _BODY_BF16_POOL = 0, 1, 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "paged_attention_float": ([_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I,
-                                                      _P, _P], ctypes.c_int),
-    "paged_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
-    "paged_attention_int": ([_P] * 10 + [_I] * 8 + [_P], ctypes.c_int),
-    "paged_attention_int_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "paged_attention_float": ([_P] * 9 + [_I] * 10 + [ctypes.c_float, _I,
+                                                       _I, _P, _P],
+                              ctypes.c_int),
+    "paged_attention_int": ([_P] * 10 + [_I] * 10 + [_P], ctypes.c_int),
+    "paged_attention_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    "paged_attention_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
+    "paged_attention_max_clusters": ([_I] * 3, ctypes.c_int),
 }
 
 
-def scores_in_scratch(g: int, hd: int, width: int,
-                      integer: bool = False) -> bool:
-    """True when the kernel's [g, width] score row does not fit in shared
-    memory and the wrapper hands it a global scratch row instead (width =
-    MB * bs, the table width; `integer` asks about the integer body).
-    Builds the kernel library on first use."""
+def cluster_size(b: int, kvh: int, mb: int, slots) -> int:
+    """CTAs per (row, KV head) of the kernels' cluster launch, from shapes
+    only (never from `meta`, which lives on the device): the largest C of
+    2, 4 and 8 with 2 * C <= mb (every CTA can own two pool blocks of a
+    full table of mb blocks: at fewer, the cluster's fixed costs outweigh
+    the split) and b * kvh * C <= slots(C), the CTAs the card holds at
+    once with C's shared memory a CTA (the wrapper asks the occupancy
+    API), so that the grid starts as one wave; 1 when no C >= 2 meets
+    both."""
+    c = 1
+    for cand in CLUSTER_SIZES[1:]:
+        if 2 * cand <= mb and b * kvh * cand <= slots(cand):
+            c = cand
+    return c
+
+
+def _body(elem_bytes: int, integer: bool) -> int:
+    if integer:
+        return _BODY_INT
+    return _BODY_INT8_POOL if elem_bytes == 1 else _BODY_BF16_POOL
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(body: int, b: int, kvh: int, g: int, hd: int, mb: int, bs: int,
+          device: int):
+    """(C, positions a CTA's slice holds, scratch bytes a CTA, 0 when its
+    score region fits on chip) of one launch shape: shapes only, so it is
+    worked out once per shape (the wrapper runs every decode step)."""
     lib = library("paged_attention", _SIGNATURES)
-    smem = (lib.paged_attention_int_smem_bytes if integer
-            else lib.paged_attention_smem_bytes)
-    return smem(g, hd, width) > _SMEM_LIMIT
+
+    def smem(c):
+        cap_blocks = -(-mb // c)
+        on_chip = lib.paged_attention_smem_bytes(body, g, hd, bs, cap_blocks,
+                                                 1)
+        if on_chip <= _SMEM_LIMIT:
+            return on_chip
+        return lib.paged_attention_smem_bytes(body, g, hd, bs, cap_blocks, 0)
+
+    with torch.cuda.device(device):
+        c = cluster_size(b, kvh, mb, lambda c: (
+            lib.paged_attention_max_clusters(body, 1, smem(c))))
+    cap_blocks = -(-mb // c)
+    scratch = 0
+    if lib.paged_attention_smem_bytes(body, g, hd, bs, cap_blocks,
+                                      1) > _SMEM_LIMIT:
+        scratch = lib.paged_attention_scratch_bytes(body, g, bs, cap_blocks)
+    return c, cap_blocks * bs, scratch
+
+
+def cluster_plan(b: int, kvh: int, g: int, hd: int, mb: int, bs: int, *,
+                 elem_bytes: int = 1, integer: bool = False,
+                 device: int = 0):
+    """(C, scores in scratch) that the wrappers launch with for these
+    shapes on card `device`: the cluster size, and True when a CTA's score
+    region (the [g, ceil(mb / C) * bs] scores of its slice, and for the
+    integer body its V scales and p.v codes) does not fit in shared memory
+    beside the ring, so that the wrapper hands the kernel a global scratch
+    region per CTA instead. `elem_bytes`: the float body's pool element (1
+    for int8 codes, 2 for bf16); `integer` asks about the integer body.
+    Builds the kernel library on first use."""
+    c, _, scratch = _plan(_body(elem_bytes, integer), b, kvh, g, hd, mb, bs,
+                          device)
+    return c, scratch > 0
+
+
+def _launch_plan(body, b, kvh, g, hd, mb, bs, dev):
+    """(C, cap, scratch tensor or None) of a launch."""
+    c, cap, scratch_bytes = _plan(body, b, kvh, g, hd, mb, bs, dev.index)
+    scratch = None
+    if scratch_bytes:
+        scratch = torch.empty(b * kvh * c * scratch_bytes, dtype=torch.uint8,
+                              device=dev)
+    return c, cap, scratch
 
 
 def gather_pool_view(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -206,8 +280,9 @@ def paged_attention_float(q, k_pool, v_pool, block_tables, meta, *,
         raise NotImplementedError("float pools must be bf16")
     if g > _MAX_G:
         raise NotImplementedError(f"at most {_MAX_G} query heads per KV head")
-    if hd % 16:
-        raise NotImplementedError("head_dim must be a multiple of 16")
+    if hd % 16 or hd > _MAX_HD:
+        raise NotImplementedError(
+            f"head_dim must be a multiple of 16, at most {_MAX_HD}")
     if tuple(k_pool.shape[2:]) != (kvh, hd) or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
                          f"q {tuple(q.shape)}")
@@ -227,10 +302,8 @@ def paged_attention_float(q, k_pool, v_pool, block_tables, meta, *,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned")
     lib = library("paged_attention", _SIGNATURES)
-    scratch = None
-    if scores_in_scratch(g, hd, mb * bs):
-        scratch = torch.empty((b, kvh, g, mb * bs), dtype=torch.float32,
-                              device=dev)
+    c, cap, scratch = _launch_plan(_body(k_pool.element_size(), False), b,
+                                   kvh, g, hd, mb, bs, dev)
     out = torch.empty((b, kvh * g, hd), dtype=torch.bfloat16, device=dev)
     params = cordic_params(hr_stages)
     err = lib.paged_attention_float(
@@ -239,7 +312,7 @@ def paged_attention_float(q, k_pool, v_pool, block_tables, meta, *,
         v_scale.data_ptr() if quant else None,
         tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        int(quant), b, nb, bs, kvh, g, hd, mb, 1.0 / math.sqrt(hd),
+        int(quant), b, nb, bs, kvh, g, hd, mb, c, cap, 1.0 / math.sqrt(hd),
         int(cordic_softmax), lv_stages, ctypes.byref(params),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -292,8 +365,9 @@ def paged_attention_int(q_codes, q_scale, k_pool, v_pool, k_scale, v_scale,
                                   "codes of at most 8 bits")
     if g > _MAX_G:
         raise NotImplementedError(f"at most {_MAX_G} query heads per KV head")
-    if hd % 16:
-        raise NotImplementedError("head_dim must be a multiple of 16")
+    if hd % 16 or hd > _MAX_HD:
+        raise NotImplementedError(
+            f"head_dim must be a multiple of 16, at most {_MAX_HD}")
     if tuple(k_pool.shape[2:]) != (kvh, hd) or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
                          f"q {tuple(q_codes.shape)}")
@@ -311,17 +385,14 @@ def paged_attention_int(q_codes, q_scale, k_pool, v_pool, k_scale, v_scale,
     if any(t.data_ptr() % 16 for t in (q_codes, k_pool, v_pool)):
         raise ValueError("q codes and pools must be 16-byte aligned")
     lib = library("paged_attention", _SIGNATURES)
-    scratch = None
-    if scores_in_scratch(g, hd, mb * bs, integer=True):
-        scratch = torch.empty((b, kvh, g, mb * bs), dtype=torch.float32,
-                              device=dev)
+    c, cap, scratch = _launch_plan(_BODY_INT, b, kvh, g, hd, mb, bs, dev)
     out = torch.empty((b, kvh * g, hd), dtype=torch.bfloat16, device=dev)
     err = lib.paged_attention_int(
         q_codes.data_ptr(), q_scale.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        b, nb, bs, kvh, g, hd, mb, fmt.qmax,
+        b, nb, bs, kvh, g, hd, mb, c, cap, fmt.qmax,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

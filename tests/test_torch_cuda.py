@@ -48,7 +48,7 @@ from repro_torch.kernels.fxp_gemm.fxp_gemm import (
     fxp_gemm_fused_batched_plain, fxp_gemm_fused_plain)
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_float, paged_attention_float_plain, paged_attention_int,
-    paged_attention_int_plain, scores_in_scratch)
+    cluster_plan, paged_attention_int_plain)
 
 
 @pytest.fixture
@@ -135,34 +135,45 @@ def test_code_gemm_kernels_bit_equal_to_plain(cuda, m, k, n):
     assert torch.equal(got, fxp4_gemm_packed_plain(x, wp))
 
 
-def _tables(long_rows):
-    """(tables, meta, nb, g, bs). Short: row 0 holds blocks [3, 1] (6
-    cached tokens); row 1 SHARES block 3 and adds [2, 5, 9, 7] (17 cached
-    tokens). Long: a table 7680 positions wide, whose [g, MB*bs] score row
-    does not fit in shared memory; row 0 caches 7500 tokens over 469
-    shuffled blocks, row 1 shares row 0's first block and caches 1590
-    tokens. Row 2 is idle (all sentinel, length 0) and each active row's
-    table ends in sentinel entries."""
-    if long_rows:
-        nb, mb, g, bs = 600, 480, 8, 16
-        perm = np.random.default_rng(5).permutation(nb)
-        rows, lengths = [perm[:469], [perm[0], *perm[469:568]]], [7500, 1590]
-    else:
-        nb, mb, g, bs = 12, 6, 5, 4
-        rows, lengths = [[3, 1], [3, 2, 5, 9, 7]], [6, 17]
-    tables = np.full((3, mb), nb, np.int32)
-    for b, row in enumerate(rows):
-        tables[b, :len(row)] = row
-    lengths = np.array(lengths + [0], np.int32)
-    kv_valid = lengths + np.array([1, 1, 0], np.int32)
-    meta = np.stack([lengths, kv_valid, lengths], axis=1)
-    return torch.from_numpy(tables), torch.from_numpy(meta), nb, g, bs
+# table widths (slots MB, positions per block bs) at which the wrappers'
+# rule picks each cluster size for 5 rows x 2 KV heads, and one whose
+# score rows do not fit in a CTA's shared memory even at C 8
+_WIDTHS = {1: (2, 16), 2: (5, 8), 4: (12, 8), 8: (20, 16)}
+_SCRATCH_WIDTH = (4000, 16)
 
 
-def _pools(quant, long_rows, kvh=2, hd=32, seed=0):
-    tables, meta, nb, g, bs = _tables(long_rows)
+def _layout_tables(mb, bs, seed=5):
+    """(tables, meta, nb) of five rows over a table mb slots of bs
+    positions wide (S = mb * bs), blocks shuffled over the pool: row 0's
+    window of S - 2 positions holds a sentinel entry (as
+    clear_table_entry can leave); row 1's window ends mid-block (S / 2 +
+    1 positions); row 2 holds one token; row 3 has an empty window (valid
+    length 0) over a fully allocated table; row 4 is idle (all sentinel,
+    length 0). Unused slots hold the sentinel nb."""
+    s = mb * bs
+    windows = [s - 2, s // 2 + 1, 1]
+    need = [-(-w // bs) for w in windows] + [mb]
+    nb = sum(need) + 3
+    perm = iter(np.random.default_rng(seed).permutation(nb).tolist())
+    tables = np.full((5, mb), nb, np.int32)
+    for b, n in enumerate(need):
+        tables[b, :n] = [next(perm) for _ in range(n)]
+    tables[0, (need[0] - 1) // 2] = nb
+    qpos = np.array([w - 1 for w in windows] + [s - 1, 0], np.int32)
+    kv_valid = np.array(windows + [0, 0], np.int32)
+    meta = np.stack([qpos, kv_valid, qpos], axis=1)
+    return torch.from_numpy(tables), torch.from_numpy(meta), nb
+
+
+def _pools(quant, mb, bs, g, kvh=2, seed=0):
+    """bf16 q [5, kvh, g, hd] and pools over _layout_tables(mb, bs): int8
+    codes with per-position scales, or bf16 values; hd 128 at g 5 (the
+    paths' head) and 32 otherwise (rows narrower than a score lane's
+    chunks)."""
+    tables, meta, nb = _layout_tables(mb, bs)
+    hd = 128 if g == 5 else 32
     rng = np.random.default_rng(seed)
-    q = torch.from_numpy(rng.normal(size=(3, kvh, g, hd)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(5, kvh, g, hd)).astype(np.float32))
     shape = (nb, bs, kvh, hd)
     if quant:
         k = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
@@ -178,56 +189,84 @@ def _pools(quant, long_rows, kvh=2, hd=32, seed=0):
     return q.to(torch.bfloat16), k, v, ks, vs, tables, meta
 
 
-@pytest.mark.parametrize("long_rows", [False, True],
-                         ids=["scores-in-smem", "scores-in-global-scratch"])
+def _plan(q, k, tables, integer=False):
+    b, kvh, g, hd = q.shape
+    return cluster_plan(b, kvh, g, hd, tables.shape[1], k.shape[1],
+                        elem_bytes=k.element_size(), integer=integer,
+                        device=q.device.index)
+
+
+def _check_attention(wrapper, run, plain):
+    """Two launches against the plain version: one launch a call,
+    bit-identical, finite, within 1% of the output's range (bf16 output,
+    reductions in another order than the plain einsums), and the empty
+    window's row (the mean of V over the table width) within 1% of its
+    own range. Returns (kernel, plain) outputs in f32."""
+    before = wrapper.launches
+    got = run()
+    assert wrapper.launches == before + 1
+    again = run()
+    assert torch.equal(got, again)
+    got, want = got.float(), plain().float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert want[3].abs().max().item() > 0
+    assert ((got[3] - want[3]).abs().max().item()
+            <= 1e-2 * want[3].abs().max().item())
+    return got, want
+
+
+# (cluster size, scores in global scratch, g): every size at g 1, 5 and 8,
+# and the scratch branch at g 8
+_CASES = [(c, False, g) for c in _WIDTHS for g in (1, 5, 8)] + [(8, True, 8)]
+_IDS = [f"C{c}-g{g}" + ("-scores-in-global-scratch" if s else "")
+        for c, s, g in _CASES]
+
+
+@pytest.mark.parametrize("c,scratch,g", _CASES, ids=_IDS)
 @pytest.mark.parametrize("quant", [True, False], ids=["int8-cordic",
                                                       "bf16-exact"])
-def test_paged_attention_kernel_matches_plain(cuda, quant, long_rows):
+def test_paged_attention_kernel_matches_plain(cuda, quant, g, c, scratch):
+    """Float decode attention against its plain version at each cluster
+    size the wrappers' rule picks (forced by the table's width) and both
+    branches of the score row, on rows with a sentinel inside the window,
+    a window ending mid-block, one token, an empty window over allocated
+    blocks and an all-sentinel idle row."""
+    mb, bs = _SCRATCH_WIDTH if scratch else _WIDTHS[c]
     q, k, v, ks, vs, tables, meta = [
         t.to(cuda) if t is not None else None
-        for t in _pools(quant, long_rows)]
-    width = tables.shape[1] * k.shape[1]
-    # the long table takes the kernel's other branch: its score row lives
-    # in a global scratch row instead of shared memory
-    assert scores_in_scratch(q.shape[2], q.shape[3], width) == long_rows
-    lv = softmax_lv_stages(width, "fxp8")
+        for t in _pools(quant, mb, bs, g)]
+    assert _plan(q, k, tables) == (c, scratch)
+    lv = softmax_lv_stages(mb * bs, "fxp8")
     kw = dict(k_scale=ks, v_scale=vs, cordic_softmax=quant, hr_stages=4,
               lv_stages=lv, out_dtype=torch.bfloat16)
-    before = paged_attention_float.launches
-    got = paged_attention_float(q, k, v, tables, meta, **kw).float()
-    assert paged_attention_float.launches == before + 1
-    want = paged_attention_float_plain(q, k, v, tables, meta, **kw).float()
-    assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    got, _ = _check_attention(
+        paged_attention_float,
+        lambda: paged_attention_float(q, k, v, tables, meta, **kw),
+        lambda: paged_attention_float_plain(q, k, v, tables, meta, **kw))
     # the idle row reads only sentinel blocks (V exactly zero): a zero
-    # numerator, which the LV divide resolves to within 2^-lv
-    assert got[2].abs().max().item() <= 2.0 ** -(lv - 1)
+    # numerator, exact under the exact divide, within 2^-lv under LV's
+    assert got[4].abs().max().item() <= (2.0 ** -(lv - 1) if quant else 0.0)
 
 
-@pytest.mark.parametrize("long_rows", [False, True],
-                         ids=["scores-in-smem", "scores-in-global-scratch"])
-def test_paged_attention_int_kernel_matches_plain(cuda, long_rows):
+@pytest.mark.parametrize("c,scratch,g", _CASES, ids=_IDS)
+def test_paged_attention_int_kernel_matches_plain(cuda, g, c, scratch):
     """Integer decode attention (exact softmax) against its plain version
-    on the short and the long tables (the long one's [g, MB*bs] score row
-    lives in a global scratch row); the idle row reads only sentinel
-    blocks, whose zero V scales give an exact zero."""
-    q, k, v, ks, vs, tables, meta = [
-        t.to(cuda) for t in _pools(True, long_rows)]
+    on the same layouts, cluster sizes and score-row branches; the idle
+    row reads only sentinel blocks, whose zero V scales give an exact
+    zero."""
+    mb, bs = _SCRATCH_WIDTH if scratch else _WIDTHS[c]
+    q, k, v, ks, vs, tables, meta = [t.to(cuda)
+                                     for t in _pools(True, mb, bs, g)]
+    assert _plan(q, k, tables, integer=True) == (c, scratch)
     fmt = FORMATS["fxp8"]
     qc, sq = quantize(q.float() / q.shape[-1] ** 0.5, fmt, axis=3)
-    width = tables.shape[1] * k.shape[1]
-    assert scores_in_scratch(q.shape[2], q.shape[3], width,
-                             integer=True) == long_rows
     args = (qc, sq, k, v, ks, vs, tables, meta)
-    before = paged_attention_int.launches
-    got = paged_attention_int(*args, fmt=fmt, out_dtype=torch.bfloat16)
-    assert paged_attention_int.launches == before + 1
-    want = paged_attention_int_plain(*args, fmt=fmt,
-                                     out_dtype=torch.bfloat16)
-    got, want = got.float(), want.float()
-    assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
-    assert (got[2] == 0).all()
+    kw = dict(fmt=fmt, out_dtype=torch.bfloat16)
+    got, _ = _check_attention(
+        paged_attention_int, lambda: paged_attention_int(*args, **kw),
+        lambda: paged_attention_int_plain(*args, **kw))
+    assert (got[4] == 0).all()
 
 
 def test_unported_paths_raise_on_cuda(cuda):

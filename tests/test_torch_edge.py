@@ -207,8 +207,37 @@ def _tol(want):
     return 1e-2 * np.abs(want).max()
 
 
-def test_paged_attention_int_plain_matches_pallas():
+# Layouts a split of the row must keep, each a change of _pools' rows:
+#   sentinel-in-window: row 2's third table slot back to the sentinel
+#     inside its window (the position scores exactly 0, it is not masked);
+#   mid-block: row 0's window ends one position into its second block,
+#     row 2's two into its fifth;
+#   one-token: row 3 holds one token in block 6;
+#   empty-window: row 3's valid length is 0 over three allocated blocks
+#     (every score masked: the mean of V over the table width, requantized).
+LAYOUTS = ("sentinel-in-window", "mid-block", "one-token", "empty-window")
+
+
+def _layout(tables, lengths, kv_valid, layout):
+    tables, lengths, kv_valid = tables.copy(), lengths.copy(), kv_valid.copy()
+    if layout == "sentinel-in-window":
+        tables[2, 2] = NB
+    elif layout == "mid-block":
+        lengths[[0, 2]] = [4, 17]
+        kv_valid[[0, 2]] = [5, 18]
+    elif layout == "one-token":
+        tables[3, 0] = 6
+        kv_valid[3] = 1
+    elif layout == "empty-window":
+        tables[3, :3] = [6, 3, 7]
+        lengths[3] = 9
+    return tables, lengths, kv_valid
+
+
+def _check_int_plain_matches_pallas(layout=None):
     jq, (kc, vc, ks, vs), tables, lengths, kv_valid = _pools()
+    if layout is not None:
+        tables, lengths, kv_valid = _layout(tables, lengths, kv_valid, layout)
     fmt = JFORMATS[FMT]
     meta = np.stack([lengths, kv_valid, lengths], axis=1).astype(np.int32)
     qc, sq = jquantize(jq.astype(jnp.float32) / np.sqrt(HD), fmt, axis=3)
@@ -229,8 +258,23 @@ def test_paged_attention_int_plain_matches_pallas():
     got, want = got.float().numpy(), _f32(want)
     assert got.shape == (B, KVH * G, HD) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want))
+    return got, want
+
+
+def test_paged_attention_int_plain_matches_pallas():
+    got, want = _check_int_plain_matches_pallas()
     # the idle row: sentinel blocks, zero V scales, an exact zero output
     assert (got[3] == 0).all() and (want[3] == 0).all()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_paged_attention_int_plain_matches_pallas_layouts(layout):
+    """The plain version against the Pallas kernel on the layouts that
+    the card's cluster kernel is held to against the plain version."""
+    got, _ = _check_int_plain_matches_pallas(layout)
+    if layout == "empty-window":
+        # every weight equal: the requantized mean of V, not 0/0
+        assert np.abs(got[3]).max() > 0
 
 
 def test_int8_decode_attention_prefill_chunk_matches_reference():

@@ -221,11 +221,41 @@ def _t(a):
     return torch.from_numpy(a.copy())
 
 
-@pytest.mark.parametrize("policy_name", ["flexpe8", "bf16"])
-def test_paged_attention_plain_matches_pallas(policy_name):
+# Layouts a split of the row must keep, each a change of _pools' rows:
+#   sentinel-in-window: row 1's second table slot back to the sentinel
+#     inside its window (as clear_table_entry can leave: the position
+#     scores exactly 0, it is not masked);
+#   mid-block: row 0's window ends one position into its second block,
+#     row 1's two into its fourth;
+#   one-token: row 2 holds one token in block 0;
+#   empty-window: row 2's valid length is 0 over three allocated blocks
+#     (every score masked: the mean of V over the table width).
+LAYOUTS = ("sentinel-in-window", "mid-block", "one-token", "empty-window")
+
+
+def _layout(tables, lengths, kv_valid, layout):
+    tables, lengths, kv_valid = tables.copy(), lengths.copy(), kv_valid.copy()
+    if layout == "sentinel-in-window":
+        tables[1, 1] = NB
+    elif layout == "mid-block":
+        tables[1, 3] = 7
+        lengths[:2] = [4, 13]
+        kv_valid[:2] = [5, 14]
+    elif layout == "one-token":
+        tables[2, 0] = 0
+        kv_valid[2] = 1
+    elif layout == "empty-window":
+        tables[2, :3] = [4, 6, 0]
+        lengths[2] = 9
+    return tables, lengths, kv_valid
+
+
+def _check_plain_matches_pallas(policy_name, layout=None):
     quant = policy_name == "flexpe8"
     jpol = JPolicy.flexpe(8) if quant else JPolicy.bf16()
     jq, (kc, vc, ks, vs), tables, lengths, kv_valid, fmt = _pools(quant)
+    if layout is not None:
+        tables, lengths, kv_valid = _layout(tables, lengths, kv_valid, layout)
     want = jpa_ops.paged_attention(
         jq, kc, vc, ks, vs, jnp.asarray(tables),
         lengths=jnp.asarray(lengths), kv_valid=jnp.asarray(kv_valid),
@@ -246,6 +276,24 @@ def test_paged_attention_plain_matches_pallas(policy_name):
     lv = softmax_lv_stages(MB * BS, "fxp8")
     atol = (2.0 ** -(lv - 1) * np.abs(want).max()) if quant else 1e-6
     np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("policy_name", ["flexpe8", "bf16"])
+def test_paged_attention_plain_matches_pallas(policy_name):
+    _check_plain_matches_pallas(policy_name)
+
+
+@pytest.mark.parametrize("policy_name", ["flexpe8", "bf16"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_paged_attention_plain_matches_pallas_layouts(policy_name, layout):
+    """The plain version against the Pallas kernel on the layouts that
+    the card's cluster kernel is held to against the plain version: the
+    semantics of the split, pinned on the CPU."""
+    got = _check_plain_matches_pallas(policy_name, layout)
+    if layout == "empty-window":
+        # every weight equal: the mean of V over the table width, not 0/0
+        assert np.abs(got[2]).max() > 0
 
 
 def test_paged_attention_reference_backend_is_plain():
