@@ -26,9 +26,14 @@ Phases, one line each, any failure exits non-zero before the last line:
                 whose score rows live in a global scratch row; the float
                 one also on a bf16 pool and at g 1 (beside
                 scaled_dot_product_attention on pre-gathered rows, a
-                yardstick that does less work); the CORDIC AF
-                (bit-equal) at the MoE expert activations; the CORDIC
-                softmax (bit-equal) at the router's rows and a wide row;
+                yardstick that does less work); an empty launch, the
+                floor of a one-launch op; the CORDIC AF op and the
+                CORDIC softmax op (each one launch holding both FxP
+                snaps; bit-equal to the plain op; timed by all of a
+                call's device records and by the kernel's) at the MoE
+                expert activations in bf16 under FxP8 and FxP4 and past
+                the resident grid's registers, and at the router's f32
+                rows under FxP8 and a wide row, and without a precision;
   4. check    — reduced Qwen2.5-14B (under FxP8, edge4 and integer
                 attention) and reduced DeepSeekMoE-16B (FxP8 and edge4),
                 each served through the kernels and through the plain path
@@ -792,47 +797,107 @@ def attention_int_phase(dev, gen):
 
 # f32 operations per element, counted from csrc/cordic.cuh at FxP8's stage
 # counts (4 HR stages, LV 5 for the AF, 12 for the 64-way softmax): the HR
-# exp ~45 (clamp, range reduction, 4 stages of 9, 2^k), an LV stage 7
+# exp ~45 (clamp, range reduction, 4 stages of 9, 2^k), an LV stage 7; the
+# two per-tensor snaps of csrc/fxp_snap.cuh: |x| into the max, a divide,
+# rint, the clamp, the codes' round trip and the multiply, twice
 CORDIC_SILU_OPS = 45 + 3 + 5 * 7 + 1
 CORDIC_SOFTMAX_OPS = 2 + 45 + 1 + 12 * 7
+CORDIC_SNAP_OPS = 2 * (1 + 1 + 1 + 2 + 2 + 1)
+
+
+def op_ms(fn, iters: int, record: str):
+    """(device ms per call of every record, records per call, device ms
+    per call of the kernel `record`, window) of `fn()`, one profiler
+    window (taken again, up to three times, while it holds fewer than
+    `iters` kernel records; then both times are the CUDA-event time)."""
+    fn()
+    for _ in range(3):
+        rec = profile_window(fn, iters)
+        held, kernel_ms = matching(rec, record)
+        n_all, all_ms = matching(rec, None)
+        if held == iters and kernel_ms > 0:
+            return (all_ms / iters, n_all / iters, kernel_ms / iters,
+                    dict(held=held, iters=iters))
+        print(f"profiler: {held} records of {record} for {iters} launches; "
+              "measuring again", flush=True)
+    TIMING["source"] = "cuda events"
+    ms = cuda_ms(fn, iters)
+    return ms, None, ms, dict(held=held, iters=iters)
+
+
+def empty_launch_ms() -> float:
+    """Device time of an empty launch (`torch.cuda._sleep(0)`): the floor
+    any one-launch op pays, whatever its work."""
+    ms = timed(lambda: torch.cuda._sleep(0), 20)
+    print(f"empty launch (torch.cuda._sleep(0)): {ms:.4f} ms a call, the "
+          "floor of any one-launch op", flush=True)
+    return ms
 
 
 def cordic_af_phase(dev, gen):
-    """The CORDIC AF kernel at the MoE expert activations (silu; 64
-    experts x 4 queue slots x 1408 at decode, x 16 per prefill chunk, and
-    the shared experts' 4 x 2816), bit-equal to its plain version."""
+    """The CORDIC AF op, one launch of csrc/cordic_af.cu with both FxP
+    snaps, at the MoE expert activations as the path calls it (silu on
+    bf16; 64 experts x 4 queue slots x 1408 at decode, x 16 per prefill
+    chunk, and the shared experts' 4 x 2816) under FxP8 (moe fxp8) and
+    FxP4 (moe edge4), and at a tensor past the registers of the resident
+    grid (the fallback that reads x in each phase): bit-equal to the plain
+    op, timed by all of its device records and by its kernel record; and
+    without a precision on f32 (the kernel alone) against the plain AF."""
     from repro_torch.kernels.cordic_af.cordic_af import (
         cordic_af, cordic_af_plain, cordic_af_reference)
     rows = []
-    for shape in ((1, 64, SLOTS, 1408), (1, 64, 16, 1408), (1, SLOTS, 2816)):
-        x = torch.randn(shape, generator=gen, device=dev) * 3
-        for precision in ("fxp8", None):
-            got = cordic_af(x, "silu", precision=precision)
-            ref = (cordic_af_plain(x, "silu", 4, 5) if precision is None
-                   else cordic_af_reference(x, "silu", precision=precision))
+    shapes = ((1, 64, SLOTS, 1408), (1, 64, 16, 1408), (1, SLOTS, 2816),
+              (4, 1 << 20, 2))
+    for shape in shapes:
+        xf = torch.randn(shape, generator=gen, device=dev) * 3
+        x = xf.to(torch.bfloat16)
+        for inp, precision in ((x, "fxp8"), (x, "fxp4"), (x, None),
+                               (xf, "fxp8"), (xf, None)):
+            got = cordic_af(inp, "silu", precision=precision)
+            ref = cordic_af_reference(inp, "silu", precision=precision)
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
-                err = (got - ref).abs().max().item()
-                fail(f"cordic_af silu {shape} precision {precision}: max "
-                     f"|err| {err}, not bit-equal to the plain version")
+                err = (got.float() - ref.float()).abs().max().item()
+                fail(f"cordic_af silu {shape} {inp.dtype} precision "
+                     f"{precision}: max |err| {err}, not bit-equal to the "
+                     "plain op")
+        if not torch.equal(cordic_af(xf, "silu"),
+                           cordic_af_plain(xf, "silu", 4, 5)):
+            fail(f"cordic_af silu {shape}: not bit-equal to the plain AF")
         n = x.numel()
-        win = {}
-        ms = timed(lambda: cordic_af(x, "silu"), 20, "cordic_af_kernel", win)
-        pms = timed(lambda: cordic_af_plain(x, "silu", 4, 5), 3)
-        bms, by = bound_ms(8.0 * n, CORDIC_SILU_OPS * n, F32_OPS_PER_S)
-        rows.append(dict(shape=shape, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, max_abs_err=0.0, **win))
-        print(f"kernel cordic_af silu {list(shape)}: {ms:.4f} ms (plain "
-              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}, "
-              f"{100 * bms / ms:.1f}% of bound), bit-equal with and "
-              f"without the FxP8 snaps", flush=True)
+        for precision in ("fxp8", "fxp4"):
+            ms, recs, kms, win = op_ms(
+                lambda: cordic_af(x, "silu", precision=precision), 20,
+                "cordic_af_kernel")
+            pms = timed(lambda: cordic_af_reference(x, "silu",
+                                                    precision=precision), 3)
+            bms, by = bound_ms(4.0 * n, (CORDIC_SILU_OPS + CORDIC_SNAP_OPS)
+                               * n, F32_OPS_PER_S)
+            rows.append(dict(shape=shape, precision=precision, ms=kms,
+                             op_ms=ms, records=recs, plain_ms=pms,
+                             bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                             **win))
+            print(f"kernel cordic_af silu bf16 {precision} {list(shape)}: "
+                  f"op {ms:.4f} ms in {recs} records a call, kernel record "
+                  f"{kms:.4f} ms (plain op {pms:.4f} ms, bound {bms:.4f} ms "
+                  f"by {by}, {100 * bms / kms:.1f}% of bound), bit-equal",
+                  flush=True)
+        raw = timed(lambda: cordic_af(xf, "silu"), 20, "cordic_af_kernel")
+        raw_plain = timed(lambda: cordic_af_plain(xf, "silu", 4, 5), 3)
+        print(f"kernel cordic_af silu f32, no precision, {list(shape)}: "
+              f"{raw:.4f} ms (plain AF {raw_plain:.4f} ms), bit-equal",
+              flush=True)
     return rows
 
 
 def cordic_softmax_phase(dev, gen):
-    """The CORDIC softmax kernel at the router's rows (4 decode tokens, one
-    16-token prefill chunk, 64 experts, lv 12) and at a wide row (the
-    lane loop over 4096 columns), bit-equal to its plain version."""
+    """The CORDIC softmax op, one launch of csrc/cordic_softmax.cu with
+    both FxP snaps, at the router's rows as the path calls it (f32 logits,
+    4 decode tokens and one 16-token prefill chunk, 64 experts, lv 12)
+    under FxP8, and at a wide row (the fallback that walks 4096 columns
+    from memory): bit-equal to the plain op, timed by all of its device
+    records and by its kernel record; and without a precision (the row
+    softmax alone) against the plain version."""
     from repro_torch.core.activation import softmax_lv_stages
     from repro_torch.kernels.cordic_softmax.cordic_softmax import (
         cordic_softmax, cordic_softmax_plain, cordic_softmax_reference)
@@ -840,29 +905,39 @@ def cordic_softmax_phase(dev, gen):
     for m, n in ((SLOTS, 64), (16, 64), (8, 4096)):
         x = torch.randn((m, n), generator=gen, device=dev) * 2
         lv = softmax_lv_stages(n, "fxp8")
-        got = cordic_softmax(x, precision="fxp8")
-        ref = cordic_softmax_reference(x, precision="fxp8")
+        for inp in (x, x.to(torch.bfloat16)):
+            for precision in ("fxp8", "fxp4", None):
+                got = cordic_softmax(inp, precision=precision)
+                ref = cordic_softmax_reference(inp, precision=precision)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    fail(f"cordic_softmax [{m}, {n}] {inp.dtype} precision "
+                         f"{precision}: max |err| "
+                         f"{(got.float() - ref.float()).abs().max().item()}, "
+                         "not bit-equal to the plain op")
         raw = cordic_softmax(x, hr_stages=4, lv_stages=lv)
-        raw_ref = cordic_softmax_plain(x, 4, lv)
-        torch.cuda.synchronize()
-        for a, b, what in ((got, ref, "FxP8 op"), (raw, raw_ref, "rows")):
-            if not torch.equal(a, b):
-                fail(f"cordic_softmax [{m}, {n}] ({what}): max |err| "
-                     f"{(a - b).abs().max().item()}, not bit-equal to the "
-                     "plain version")
+        if not torch.equal(raw, cordic_softmax_plain(x, 4, lv)):
+            fail(f"cordic_softmax [{m}, {n}]: the rows are not bit-equal to "
+                 "the plain version")
         if (raw.sum(-1) - 1).abs().max().item() > n * 2.0 ** -(lv - 1):
             fail(f"cordic_softmax [{m}, {n}]: rows do not sum to 1")
-        win = {}
-        ms = timed(lambda: cordic_softmax(x, hr_stages=4, lv_stages=lv), 20,
-                   "cordic_softmax_kernel", win)
-        pms = timed(lambda: cordic_softmax_plain(x, 4, lv), 3)
-        bms, by = bound_ms(8.0 * m * n, CORDIC_SOFTMAX_OPS * m * n,
-                           F32_OPS_PER_S)
-        rows.append(dict(shape=(m, n), ms=ms, plain_ms=pms, bound_ms=bms,
+        ms, recs, kms, win = op_ms(
+            lambda: cordic_softmax(x, precision="fxp8"), 20,
+            "cordic_softmax_kernel")
+        pms = timed(lambda: cordic_softmax_reference(x, precision="fxp8"), 3)
+        bms, by = bound_ms(8.0 * m * n, (CORDIC_SOFTMAX_OPS + CORDIC_SNAP_OPS)
+                           * m * n, F32_OPS_PER_S)
+        raw_ms = timed(lambda: cordic_softmax(x, hr_stages=4, lv_stages=lv),
+                       20, "cordic_softmax_kernel")
+        raw_plain = timed(lambda: cordic_softmax_plain(x, 4, lv), 3)
+        rows.append(dict(shape=(m, n), precision="fxp8", ms=kms, op_ms=ms,
+                         records=recs, plain_ms=pms, bound_ms=bms,
                          bound_by=by, max_abs_err=0.0, **win))
-        print(f"kernel cordic_softmax [{m}, {n}] lv={lv}: {ms:.4f} ms "
-              f"(plain {pms:.4f} ms, bound {bms:.6f} ms by {by}), "
-              f"bit-equal", flush=True)
+        print(f"kernel cordic_softmax f32 fxp8 [{m}, {n}] lv={lv}: op "
+              f"{ms:.4f} ms in {recs} records a call, kernel record "
+              f"{kms:.4f} ms (plain op {pms:.4f} ms, bound {bms:.6f} ms by "
+              f"{by}); no precision {raw_ms:.4f} ms (plain rows "
+              f"{raw_plain:.4f} ms); bit-equal", flush=True)
     return rows
 
 
@@ -1324,6 +1399,7 @@ def main():
     attn = attention_phase(dev, torch.Generator(device=dev).manual_seed(1))
     attn_int = attention_int_phase(
         dev, torch.Generator(device=dev).manual_seed(7))
+    empty_ms = empty_launch_ms()
     af_rows = cordic_af_phase(dev, torch.Generator(device=dev).manual_seed(3))
     sm_rows = cordic_softmax_phase(
         dev, torch.Generator(device=dev).manual_seed(4))
@@ -1392,12 +1468,16 @@ def main():
         kernel_entry("cordic_af", "src/repro_torch/csrc/cordic_af.cu",
                      "src/repro/kernels/cordic_af/cordic_af.py:89",
                      af_rows[0], launches, "deepseek_moe_16b/fxp8",
-                     shape="silu [1, 64, 4, 1408] (expert activations at "
-                           "decode)"),
+                     op_ms=af_rows[0]["op_ms"],
+                     shape="silu bf16 fxp8 [1, 64, 4, 1408] (expert "
+                           "activations at decode), the whole op in one "
+                           "launch"),
         kernel_entry("cordic_softmax", "src/repro_torch/csrc/cordic_softmax.cu",
                      "src/repro/kernels/cordic_softmax/cordic_softmax.py:33",
                      sm_rows[0], launches, "deepseek_moe_16b/fxp8",
-                     shape="[4, 64], lv 12 (router at decode)"),
+                     op_ms=sm_rows[0]["op_ms"], empty_launch_ms=empty_ms,
+                     shape="f32 fxp8 [4, 64], lv 12 (router at decode), the "
+                           "whole op in one launch"),
         kernel_entry("fxp_gemm_codes", gemm_src, f"{gemm_ref}:111",
                      code_rows["fxp_gemm_codes"], launches,
                      shape=code_rows["fxp_gemm_codes"]["shape"],

@@ -88,8 +88,8 @@ enum AfCode { AF_NONE = 0, AF_RELU, AF_SIGMOID, AF_TANH, AF_SILU, AF_GELU,
 __device__ __forceinline__ float apply_af(float v, int af,
                                           const CordicParams& p, int lv_n) {
   switch (af) {
-    case AF_RELU:
-      return v > 0.f ? v : 0.f;
+    case AF_RELU:                  // torch.clamp_min on CUDA: NaN kept
+      return v != v ? v : fmaxf(v, 0.f);
     case AF_SIGMOID:
       return cordic_sigmoid(v, p, lv_n);
     case AF_TANH: {

@@ -23,10 +23,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 from ..core.cordic import device_constants
 
 __all__ = ["KERNEL_SOURCES", "build", "library", "CordicParams",
-           "cordic_params", "BUILD_DIR"]
+           "cordic_params", "op_slots", "BUILD_DIR"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
@@ -125,3 +127,21 @@ def cordic_params(hr_stages: int) -> CordicParams:
         p.shifts[i] = s
         p.atanh[i] = float(a)
     return p
+
+
+_BLOCKS_PER_SM = 32   # the most blocks an SM of sm_90 holds
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def op_slots(device: torch.device) -> torch.Tensor:
+    """The CORDIC ops' workspace of per-block maxima (`csrc/fxp_snap.cuh`):
+    two words for every block the card can hold, uninitialised, from the
+    caching allocator (so a CUDA graph captures it in its pool)."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    return torch.empty(2 * _BLOCKS_PER_SM * _sms(index), dtype=torch.int32,
+                       device=device)

@@ -5,9 +5,11 @@ cordic_softmax`): the input snapped to the FxP grid per tensor in f32,
 each row's max, HR-CORDIC exp, row sum and LV-CORDIC divide, the result
 snapped again, cast back to the input dtype. LV stages scale with the row
 length (`softmax_lv_stages`: 12 for the 64-way MoE router under FxP8).
-On a CUDA tensor the row softmax is the hand-written Hopper kernel
-(`csrc/cordic_softmax.cu`), which raises rather than fall back; on a CPU
-tensor it is `cordic_softmax_plain`.
+On a CUDA tensor (bf16 or f32) the whole op is one launch of the
+hand-written Hopper kernel (`csrc/cordic_softmax.cu`: both snaps, their
+per-tensor maxima reduced across a cooperative grid, the row softmax and
+the cast), which raises rather than fall back; on a CPU tensor it is
+`_op` around `cordic_softmax_plain`.
 
 The row sum runs in one fixed order in both: lane l of a 32-lane warp
 adds columns l, l+32, l+64, ... in turn, then five xor-butterfly steps
@@ -34,17 +36,18 @@ from typing import Optional
 import torch
 
 from ...core.activation import softmax_lv_stages
-from ...core.cordic import PARETO_STAGES, extended_exp_float, lv_divide_float
+from ...core.cordic import extended_exp_float, lv_divide_float
 from ...core.fxp import FORMATS, fake_quant
 from ..build import cordic_params, library
+from ..cordic_af.cordic_af import snap_args, stages
 
 __all__ = ["cordic_softmax", "cordic_softmax_plain", "cordic_softmax_reference",
            "warp_row_sum"]
 
 _LANES = 32
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"cordic_softmax": ([_P, _P] + [_I] * 3 + [_P, _P],
-                                  ctypes.c_int)}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"cordic_softmax_op": ([_P, _P, _P] + [_I] * 6
+                                     + [_F, _F, _P, _P], ctypes.c_int)}
 
 
 def warp_row_sum(e: torch.Tensor) -> torch.Tensor:
@@ -73,14 +76,26 @@ def cordic_softmax_plain(x: torch.Tensor, hr_stages: int = 4,
     return lv_divide_float(e, warp_row_sum(e).expand_as(e), lv_stages)
 
 
-def _kernel(x: torch.Tensor, hr_stages: int, lv_stages: int):
-    """One launch over the f32 CUDA matrix x [M, N] -> softmax rows."""
+def _stages(x: torch.Tensor, precision: Optional[str],
+            hr_stages: Optional[int], lv_stages: Optional[int]):
+    hr, _ = stages(precision, hr_stages, None)
+    lv = (lv_stages if lv_stages is not None
+          else softmax_lv_stages(x.shape[-1], precision))
+    return hr, lv
+
+
+def _kernel(x: torch.Tensor, precision: Optional[str], hr: int,
+            lv: int) -> torch.Tensor:
+    """One launch of the whole op over the CUDA tensor `x` (rows along the
+    last axis), same shape and dtype."""
+    slots, dtype, snap, qmin, qmax = snap_args(x, precision)
     x = x.contiguous()
     out = torch.empty_like(x)
-    params = cordic_params(hr_stages)
-    err = library("cordic_softmax", _SIGNATURES).cordic_softmax(
-        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], lv_stages,
-        ctypes.byref(params),
+    n = x.shape[-1]
+    err = library("cordic_softmax", _SIGNATURES).cordic_softmax_op(
+        x.data_ptr(), out.data_ptr(), slots.data_ptr(), slots.numel(),
+        x.numel() // n, n, dtype, lv, snap, qmin, qmax,
+        ctypes.byref(cordic_params(hr)),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cordic_softmax launch failed: CUDA error {err}")
@@ -92,34 +107,28 @@ def _op(x: torch.Tensor, precision: Optional[str], hr_stages: Optional[int],
         lv_stages: Optional[int], rows_fn) -> torch.Tensor:
     """The reference op's plumbing around `rows_fn(rows [M, N], hr, lv)`:
     stages, the f32 fake-quant in and out, the cast back."""
-    bits = FORMATS[precision].bits if precision else 16
-    hr = hr_stages if hr_stages is not None else PARETO_STAGES[bits][0]
-    n = x.shape[-1]
-    lv = (lv_stages if lv_stages is not None
-          else softmax_lv_stages(n, precision))
+    hr, lv = _stages(x, precision, hr_stages, lv_stages)
     xf = x.float()
     if precision is not None:
         xf = fake_quant(xf, FORMATS[precision])
-    out = rows_fn(xf.reshape(-1, n), hr, lv).reshape(x.shape)
+    out = rows_fn(xf.reshape(-1, x.shape[-1]), hr, lv).reshape(x.shape)
     if precision is not None:
         out = fake_quant(out, FORMATS[precision])
     return out.to(x.dtype)
 
 
-def _rows(rows: torch.Tensor, hr: int, lv: int) -> torch.Tensor:
-    if rows.device.type == "cpu":
-        return cordic_softmax_plain(rows, hr, lv)
-    if rows.device.type == "cuda":
-        return _kernel(rows, hr, lv)
-    raise ValueError(f"no kernel for device {rows.device}")
-
-
 def cordic_softmax(x: torch.Tensor, precision: Optional[str] = None,
                    hr_stages: Optional[int] = None,
                    lv_stages: Optional[int] = None) -> torch.Tensor:
-    """Softmax over the last axis on the Flex-PE datapath, in x.dtype.
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
-    return _op(x, precision, hr_stages, lv_stages, _rows)
+    """Softmax over the last axis on the Flex-PE datapath, in x.dtype. A
+    CUDA tensor takes one launch of the op's kernel; a CPU tensor runs the
+    plain op."""
+    if x.device.type == "cpu":
+        return _op(x, precision, hr_stages, lv_stages, cordic_softmax_plain)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _kernel(x, precision, *_stages(x, precision, hr_stages,
+                                          lv_stages))
 
 
 cordic_softmax.launches = 0

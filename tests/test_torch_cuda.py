@@ -12,7 +12,10 @@ and so is its expert-batched entry against the loop of single launches;
 the attention output is bf16 and its reductions run in another order
 than the plain einsums, so it is held within 1% of the output's range;
 the CORDIC AF and the CORDIC softmax are bit-equal (the same f32
-operations, the softmax's row sum in the same fixed order); a reduced
+operations, the softmax's row sum in the same fixed order), and each op
+with its per-tensor FxP snaps is one launch and one device record,
+bit-equal to the plain op (NaN where it gives NaN), twice and under a
+CUDA graph's replay; a reduced
 MoE layer through the kernels is bit-equal to the plain backend. The
 packed-FxP4 GEMM and the raw code GEMMs are bit-equal (exact int32 sums);
 the integer attention's dots are exact, but its softmax sums and
@@ -27,6 +30,8 @@ packed, dense and expert banks) and the raw int8 and packed GEMMs run on
 the tensor-core core, whose profiler record is `fxp_gemm_tc_kernel`; the
 bank tests also route no expert, one and every expert, and launch twice
 with other routing (a semaphore left dirty would show)."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -543,6 +548,235 @@ def test_cordic_softmax_kernel_bit_equal_to_plain(cuda, m, n):
     assert torch.equal(got, cordic_softmax_plain(x, 4, lv))
     assert torch.equal(cordic_softmax(x, precision="fxp8"),
                        cordic_softmax_reference(x, precision="fxp8"))
+
+
+# -- the CORDIC ops as one launch each: both per-tensor snaps, the AF or the
+# row softmax and the cast in the kernel, held bit for bit against the
+# plain op (`cordic_*_reference`, PyTorch on the card)
+
+SNAPS = ("fxp4", "fxp8", "fxp16", None)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the MoE path's expert activations (decode, a prefill chunk, the shared
+# experts), a ragged tail, and a tensor past 16 elements a thread of the
+# grid the card holds (the fallback that reads x in each phase)
+AF_SHAPES = {"decode": (1, 64, 4, 1408), "prefill": (1, 64, 16, 1408),
+             "shared": (1, 4, 2816), "ragged": (7, 333),
+             "past-registers": (4, 1 << 20, 2)}
+
+
+def _same_bits(got, want):
+    """Equal bit patterns where `want` is a number, NaN where it is NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    view = torch.int16 if want.element_size() == 2 else torch.int32
+    return torch.equal(got[~nan].view(view), want[~nan].view(view))
+
+
+def _op_records(fn, calls: int):
+    """{name: count} of the device records of `calls` calls of `fn()`
+    under the profiler."""
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act):     # takes late records
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0}
+
+
+def _graph_node_types(fn, calls: int) -> list:
+    """The node types (CUgraphNodeType, 0 a kernel) of a CUDA graph that
+    captured `calls` calls of `fn()`, read with libcuda's
+    cuGraphGetNodes: every launch, copy or fill the calls make."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+def _af_input(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32))
+    return x.to("cuda").to(dtype)
+
+
+def test_cuda_divide_by_host_scalar_is_reciprocal_multiply(cuda):
+    """The plain op's scale `amax / qmax` divides a CUDA tensor by a host
+    scalar, which PyTorch computes as `amax * f32(1 / qmax)`; the kernels'
+    `snap_scale` (csrc/fxp_snap.cuh) repeats that, not an IEEE divide."""
+    rng = np.random.default_rng(0)
+    a = (rng.random(1 << 16) * 100).astype(np.float32)
+    for q in (7, 127, 32767):
+        got = (torch.from_numpy(a).to(cuda) / q).cpu().numpy()
+        recip = a * (np.float32(1) / np.float32(q))
+        np.testing.assert_array_equal(got, recip)
+        assert (recip != a / np.float32(q)).any()
+
+
+@pytest.mark.parametrize("shape", AF_SHAPES.values(), ids=AF_SHAPES.keys())
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+@pytest.mark.parametrize("precision", SNAPS)
+@pytest.mark.parametrize("af", KERNEL_AFS)
+def test_cordic_af_op_one_launch_bit_equal(cuda, af, precision, dtype,
+                                           shape):
+    x = _af_input(shape, dtype, seed=len(shape) + shape[-1])
+    before = cordic_af.launches
+    got = cordic_af(x, af, precision=precision)
+    assert cordic_af.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _same_bits(got, cordic_af_reference(x, af, precision=precision))
+    # an unaligned view of the same storage
+    view = x.reshape(-1)[3:]
+    assert _same_bits(cordic_af(view, af, precision=precision),
+                      cordic_af_reference(view, af, precision=precision))
+
+
+def _edge_inputs(dtype):
+    """The cases the fused phases must keep, each [4, 96]: all zero (the
+    scale from the 1e-12 clamp), all negative (relu's output all 0), values
+    on half-code ties of the FxP8 grid of max 127 (round half to even),
+    -0.0 among them, and a NaN."""
+    rng = np.random.default_rng(11)
+    ties = (np.arange(-48, 48, dtype=np.float32) + 0.5)
+    ties = np.concatenate([ties[None].repeat(3, 0), [[127.0] * 96]])
+    neg = -np.abs(rng.normal(size=(4, 96))).astype(np.float32) - 0.1
+    signed = rng.normal(size=(4, 96)).astype(np.float32)
+    signed[::2, ::3] = -0.0
+    nan = rng.normal(size=(4, 96)).astype(np.float32)
+    nan[2, 5] = np.nan
+    cases = {"zero": np.zeros((4, 96), np.float32), "negative": neg,
+             "ties": ties, "minus-zero": signed, "nan": nan}
+    return {k: torch.from_numpy(v).to("cuda").to(dtype)
+            for k, v in cases.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+@pytest.mark.parametrize("precision", SNAPS)
+def test_cordic_ops_edge_cases_bit_equal(cuda, precision, dtype):
+    for case, x in _edge_inputs(dtype).items():
+        for af in KERNEL_AFS:
+            assert _same_bits(cordic_af(x, af, precision=precision),
+                              cordic_af_reference(x, af,
+                                                  precision=precision)), \
+                (case, af)
+        assert _same_bits(cordic_softmax(x, precision=precision),
+                          cordic_softmax_reference(x, precision=precision)), \
+            case
+
+
+SOFTMAX_SHAPES = {"router-decode": (4, 64), "router-prefill": (16, 64),
+                  "router-3d": (1, 16, 64), "narrow": (5, 8),
+                  "wide": (9, 300), "past-registers-width": (8, 4096),
+                  "past-registers-rows": (70000, 64)}
+
+
+@pytest.mark.parametrize("shape", SOFTMAX_SHAPES.values(),
+                         ids=SOFTMAX_SHAPES.keys())
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+@pytest.mark.parametrize("precision", SNAPS)
+def test_cordic_softmax_op_one_launch_bit_equal(cuda, precision, dtype,
+                                                shape):
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    x = rng.normal(size=shape).astype(np.float32) * 2
+    x[..., 1, :] *= 8            # the per-tensor max sits in one row
+    x = torch.from_numpy(x).to(cuda).to(dtype)
+    before = cordic_softmax.launches
+    got = cordic_softmax(x, precision=precision)
+    assert cordic_softmax.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _same_bits(got, cordic_softmax_reference(x, precision=precision))
+    view = x.reshape(-1)[shape[-1] - 1:-1].reshape(-1, shape[-1])
+    assert _same_bits(cordic_softmax(view, precision=precision),
+                      cordic_softmax_reference(view, precision=precision))
+
+
+@pytest.mark.parametrize("op", ["af", "softmax"])
+@pytest.mark.parametrize("precision", SNAPS)
+@pytest.mark.parametrize("shape", ["decode", "prefill", "past-registers"])
+def test_cordic_op_is_one_device_record(cuda, op, precision, shape):
+    """One call, one launch, whose device record is the kernel's: the
+    snaps, the cast and the slots' reduction are all in it (no copy, fill
+    or PyTorch op)."""
+    if op == "af":
+        x = _af_input(AF_SHAPES[shape], torch.bfloat16, seed=1)
+        call, name = (lambda: cordic_af(x, "silu", precision=precision),
+                      "cordic_af_kernel")
+    else:
+        rows = {"decode": 4, "prefill": 16, "past-registers": 70000}[shape]
+        x = _af_input((rows, 64), torch.float32, seed=2)
+        call, name = (lambda: cordic_softmax(x, precision=precision),
+                      "cordic_softmax_kernel")
+    call()
+    # five calls captured in a CUDA graph are five kernel nodes and nothing
+    # else (CU_GRAPH_NODE_TYPE_KERNEL is 0)
+    assert _graph_node_types(call, 5) == [0] * 5
+    # the profiler names them. It loses some records of these launches
+    # (in a whole run of this file, up to every record of a window, never
+    # a PyTorch op's): a window that holds none is taken again, up to five
+    # windows, and a window holds the kernel's records and nothing else
+    for _ in range(5):
+        records = _op_records(call, 5)
+        if records:
+            break
+    assert len(records) == 1, records
+    (key, count), = records.items()
+    assert name in key and 1 <= count <= 5, records
+
+
+@pytest.mark.parametrize("precision", ["fxp8", "fxp4", None])
+def test_cordic_ops_twice_bit_identical(cuda, precision):
+    x = _af_input(AF_SHAPES["decode"], torch.bfloat16, seed=3)
+    r = _af_input((16, 64), torch.float32, seed=4)
+    assert _same_bits(cordic_af(x, "silu", precision=precision),
+                      cordic_af(x, "silu", precision=precision))
+    assert _same_bits(cordic_softmax(r, precision=precision),
+                      cordic_softmax(r, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["fxp8", None])
+def test_cordic_ops_captured_in_cuda_graph(cuda, precision):
+    """Each op captured once in a CUDA graph, replayed twice after new data
+    is copied into its static input: each replay gives the plain op's bits
+    on that data (the slots are rewritten by every launch, nothing
+    stale)."""
+    x = _af_input(AF_SHAPES["decode"], torch.bfloat16, seed=5)
+    r = _af_input((16, 64), torch.float32, seed=6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm up off the capture
+        cordic_af(x, "silu", precision=precision)
+        cordic_softmax(r, precision=precision)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = cordic_af(x, "silu", precision=precision)
+        p = cordic_softmax(r, precision=precision)
+    for seed in (7, 8):
+        x.copy_(_af_input(AF_SHAPES["decode"], torch.bfloat16, seed) * 0.5)
+        r.copy_(_af_input((16, 64), torch.float32, seed + 10) * 4)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(y, cordic_af_reference(x, "silu",
+                                                 precision=precision))
+        assert _same_bits(p, cordic_softmax_reference(r,
+                                                      precision=precision))
 
 
 def test_moe_layer_kernels_bit_equal_to_plain_backend(cuda):
