@@ -10,11 +10,14 @@ Phases, one line each, any failure exits non-zero before the last line:
                 at the main paths' shapes, with its time, the plain
                 version's time and its bound: the GEMM (bit-equal, every
                 mode on the tensor-core core) at both families' dense
-                projections, on int8, on packed FxP4 weights and on FxP16
+                projections, on int8, on packed FxP4 weights, on FxP16
                 codes in int16 (the wide mode beside torch.matmul of the
-                codes in f32, also at codes at the ends of int16), and,
+                codes in f32, also at codes at the ends of int16) and on
+                FxP32 (and, at w1, FxP24) codes in int32 (the x32 mode on
+                the CUDA cores, beside torch.matmul of the codes in f32,
+                also at codes at the ends of int32), and,
                 batched over 64 experts, at the MoE banks, int8 and packed
-                FxP4; every GEMM window holds a record of the core for
+                FxP4; every GEMM window holds a record of its kernel for
                 each call; the raw code GEMMs
                 (bit-equal, all on the tensor cores: int8 beside
                 torch._int_mm, int16, packed FxP4); both attentions (a
@@ -34,15 +37,17 @@ Phases, one line each, any failure exits non-zero before the last line:
                 expert activations in bf16 under FxP8 and FxP4 and past
                 the resident grid's registers, and at the router's f32
                 rows under FxP8 and a wide row, and without a precision;
-  4. check    — reduced Qwen2.5-14B (under FxP8, edge4 and integer
-                attention) and reduced DeepSeekMoE-16B (FxP8 and edge4),
+  4. check    — the FxP32 quantize on the card (it saturates to the
+                reference's codes); reduced Qwen2.5-14B (under FxP8,
+                edge4, integer attention and FxP32) and reduced
+                DeepSeekMoE-16B (FxP8 and edge4),
                 each served through the kernels and through the plain path
                 on the card: the same greedy tokens; the reduced fleet of
                 an fxp8 and an fxp16 replica over one TieredWeights bank:
                 the same tiers and tokens on both paths, and with every
                 request pinned to one tier, the tokens of a single engine
                 of that tier over the same bank;
-  5. serve    — six paths, each at full width from seed 0: Qwen2.5-14B
+  5. serve    — seven paths, each at full width from seed 0: Qwen2.5-14B
                 (48 layers) with FxP8 weights, DeepSeekMoE-16B (28 layers)
                 with FxP8 weights, Qwen2.5-14B under edge4 (packed FxP4
                 weights and activations), Qwen2.5-14B under integer
@@ -50,7 +55,10 @@ Phases, one line each, any failure exits non-zero before the last line:
                 DeepSeekMoE-16B under edge4 (packed FxP4 expert banks) and
                 the precision-tiered fleet of Qwen2.5-14B (an fxp8 and an
                 fxp16 replica over one TieredWeights bank, tiered routing,
-                threshold 1.0, priority 0); each with paged int8 KV (block
+                threshold 1.0, priority 0) and Qwen2.5-14B under FxP32
+                (48 layers of int32 weights, every GEMM on the x32 mode,
+                its KV codes wrapped into the int8 pool as the
+                reference's are); each with paged int8 KV (block
                 16), 4 slots (per replica), 8 mixed requests (prompts
                 40-64), 16 greedy tokens each, prefill chunk 16, overlap
                 loop; the launches of every kernel, and of each GEMM mode,
@@ -466,6 +474,94 @@ def wide_gemm_phase(dev, gen):
     print(f"kernel fxp_gemm_fused wide at codes +-32767 and -32768 M={m} "
           f"K={k} N={n}: {ms:.4f} ms on the device, sums up to "
           f"{k * 32768 ** 2:.3e}, bit-equal with and without silu",
+          flush=True)
+    return rows
+
+
+def x32_gemm_phase(dev, gen):
+    """The fused GEMM's x32 mode (csrc/fxp_gemm.cu, x32: int32 codes on
+    the CUDA cores, the exact sum in 128 bits rounded once to f32) at the
+    full-width Qwen2.5-14B's shapes on FxP32 codes (the fxp32 path), and
+    w1 + SiLU on FxP24 codes too, each bit-equal to its plain version,
+    beside torch.matmul of the same codes already cast to f32 (TF32 off;
+    it rounds every code past 2^24 and every partial sum: a yardstick, not
+    the same function). The bound counts the int32 operand bytes and the
+    2 M K N products at the f32 rate outside the tensor cores (the table
+    has no int32 rate). Each window must hold one x32 record a call. Then
+    codes at the ends of int32 at w2's shape (sums of K * 2^62, past
+    2^64): bit-equal too."""
+    from repro_torch.kernels.fxp_gemm.fxp_gemm import (
+        fxp_gemm_fused, fxp_gemm_fused_plain)
+    hr, lv = 8, 10                # default_stages of FxP24 and FxP32
+    shapes = [(SLOTS, 5120, 5120, None, 32), (SLOTS, 5120, 1024, None, 32),
+              (SLOTS, 5120, 13824, "silu", 32),
+              (SLOTS, 5120, 13824, None, 32), (SLOTS, 13824, 5120, None, 32),
+              (SLOTS, 5120, 152064, None, 32), (16, 5120, 5120, None, 32),
+              (SLOTS, 5120, 13824, "silu", 24)]
+    rows = []
+    for m, k, n, af, bits in shapes:
+        q = (1 << (bits - 1)) - 1
+        x = torch.randint(-q - 1, q + 1, (m, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w = torch.randint(-q - 1, q + 1, (k, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        scale = torch.rand((n,), generator=gen, device=dev) / (
+            float(q) ** 2 * k ** 0.5)
+
+        def run():
+            return fxp_gemm_fused(x, w, scale, af=af, hr_stages=hr,
+                                  lv_stages=lv)
+
+        def plain():
+            return fxp_gemm_fused_plain(x, w, scale, af=af, hr_stages=hr,
+                                        lv_stages=lv)
+        what = f"fxp_gemm_fused x32 FxP{bits} {m}x{k}x{n}+{af}"
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"{what}: not bit-equal to plain (max |err| "
+                 f"{(got - ref).abs().max().item()})")
+        win = {}
+        ms = timed(run, 20, "fxp_gemm_x32_kernel", win)
+        held_all(what, win, "fxp_gemm_x32_kernel")
+        call_ms = cuda_ms(run, 20)
+        pms = timed(plain, 2)
+        xf, wf = x.float(), w.float()
+        lib_ms = timed(lambda: torch.matmul(xf, wf), 20)
+        del xf, wf
+        nbytes = 4 * m * k + 4 * k * n + 4 * n + 4 * m * n
+        bms, by = bound_ms(nbytes, 2.0 * m * k * n, F32_OPS_PER_S)
+        rows.append(dict(m=m, k=k, n=n, af=af, bits=bits, ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                         library_ms=lib_ms, call_ms=call_ms, **win))
+        print(f"kernel fxp_gemm_fused x32 (FxP{bits} int32 codes) M={m} "
+              f"K={k} N={n} af={af}: {ms:.4f} ms on the device ({win['held']} "
+              f"of {win['iters']} records), {call_ms:.4f} ms per wrapper "
+              f"call (plain {pms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"{100 * bms / ms:.1f}% of bound; library torch.matmul on f32 "
+              f"codes {lib_ms:.4f} ms), bit-equal", flush=True)
+        del x, w
+    m, k, n = SLOTS, 13824, 5120
+    q = (1 << 31) - 1
+    x = torch.full((m, k), q, dtype=torch.int32, device=dev)
+    x[1] = -q - 1
+    x[-1, ::3] = -q
+    w = torch.where(torch.arange(n, device=dev) % 2 == 0, q, -q)
+    w = w.to(torch.int32).expand(k, n).clone()
+    w[:, 2] = -q - 1
+    scale = torch.full((n,), 2.0 ** -70, device=dev)
+    for af in (None, "silu"):
+        got = fxp_gemm_fused(x, w, scale, af=af, hr_stages=hr, lv_stages=lv)
+        ref = fxp_gemm_fused_plain(x, w, scale, af=af, hr_stages=hr,
+                                   lv_stages=lv)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"fxp_gemm_fused x32 at extreme codes {m}x{k}x{n}+{af}: "
+                 "not bit-equal to plain")
+    ms = timed(lambda: fxp_gemm_fused(x, w, scale), 20, "fxp_gemm_x32_kernel")
+    print(f"kernel fxp_gemm_fused x32 at codes +-(2^31 - 1) and -2^31 M={m} "
+          f"K={k} N={n}: {ms:.4f} ms on the device, sums up to "
+          f"{float(k) * 2.0 ** 62:.3e}, bit-equal with and without silu",
           flush=True)
     return rows
 
@@ -952,12 +1048,12 @@ def serve_tokens(engine, reqs):
 
 
 def policy(name: str, backend: str):
-    """The serving policies of the paths: FxP8 (the CLI's flexpe-fxp8),
-    edge4 (the CLI's edge4: packed FxP4 weights, FxP4 activations, CORDIC
-    AF and attention softmax at FxP4 stages) and integer attention (FxP8
-    with the exact AF and softmax and `int_attention`, the reference's
-    int8_attn serving variant). The fleet's replicas take the ladder's
-    `tier_policy`."""
+    """The serving policies of the paths: FxP8 and FxP32 (the CLI's
+    flexpe-fxp8 and flexpe-fxp32), edge4 (the CLI's edge4: packed FxP4
+    weights, FxP4 activations, CORDIC AF and attention softmax at FxP4
+    stages) and integer attention (FxP8 with the exact AF and softmax and
+    `int_attention`, the reference's int8_attn serving variant). The
+    fleet's replicas take the ladder's `tier_policy`."""
     from repro_torch.core.precision import PrecisionPolicy
     if name == "edge4":
         return PrecisionPolicy.edge4(backend=backend)
@@ -965,14 +1061,15 @@ def policy(name: str, backend: str):
         return dataclasses.replace(
             PrecisionPolicy.flexpe(8, af_impl="exact", backend=backend),
             int_attention=True)
-    return PrecisionPolicy.flexpe(8, backend=backend)
+    return PrecisionPolicy.flexpe(int(name[3:]), backend=backend)
 
 
 #: the served paths: (architecture, policy, or "fleet" for the tiered
 #: fleet of FLEET's replicas)
 PATHS = (("qwen2_5_14b", "fxp8"), ("deepseek_moe_16b", "fxp8"),
          ("qwen2_5_14b", "edge4"), ("qwen2_5_14b", "int-attention"),
-         ("deepseek_moe_16b", "edge4"), ("qwen2_5_14b", "fleet"))
+         ("deepseek_moe_16b", "edge4"), ("qwen2_5_14b", "fleet"),
+         ("qwen2_5_14b", "fxp32"))
 
 
 def check_phase(dev, arch, policy_name):
@@ -994,6 +1091,31 @@ def check_phase(dev, arch, policy_name):
     print(f"check reduced {arch} {policy_name}: kernels == plain path on "
           f"the card, {sum(map(len, toks['kernels']))} greedy tokens",
           flush=True)
+
+
+def check_quantize_phase(dev):
+    """The FxP32 quantize on the card: 1 / scale is 2^31 in f32 and
+    saturates to 2^31 - 1, as the reference's XLA cast does (the codes of
+    [1, -1, 0.5, 0.3] below are the reference's, which the CPU tests hold
+    bit for bit); on seeded rows the card's codes equal the CPU's at FxP24
+    and FxP32 under the same scale."""
+    from repro_torch.core.fxp import FORMATS, quantize
+    want = [(1 << 31) - 1, -(1 << 31), 1 << 30, 644245120]
+    got = quantize(torch.tensor([1.0, -1.0, 0.5, 0.3], device=dev),
+                   FORMATS["fxp32"])[0].tolist()
+    if got != want:
+        fail(f"FxP32 quantize on the card: {got}, the reference's {want}")
+    x = torch.randn((64, 5120), generator=torch.Generator().manual_seed(0))
+    for fmt in ("fxp24", "fxp32"):
+        codes, scale = quantize(x, FORMATS[fmt], axis=1)
+        on_card = quantize(x.to(dev), FORMATS[fmt], scale=scale.to(dev))[0]
+        if not torch.equal(on_card.cpu(), codes):
+            fail(f"{fmt} quantize: the card's codes differ from the CPU's")
+    cast = torch.tensor([2.0 ** 31], device=dev).to(torch.int32).item()
+    print(f"check FxP32 quantize on the card: [1, -1, 0.5, 0.3] -> {got} "
+          "(saturated, the reference's codes); FxP24 and FxP32 codes of "
+          "64 x 5120 seeded rows equal the CPU's; PyTorch's own f32 -> "
+          f"int32 cast of 2^31 on the card gives {cast}", flush=True)
 
 
 def check_fleet_phase(dev):
@@ -1047,7 +1169,8 @@ def check_fleet_phase(dev):
 
 
 #: each kernel wrapper's name and the names of its device records
-RECORDS = {"fxp_gemm_fused": "fxp_gemm_tc_kernel",
+RECORDS = {"fxp_gemm_fused": ("fxp_gemm_tc_kernel",
+                              "fxp_gemm_x32_kernel"),
            "paged_attention_float": "paged_attention_kernel",
            "cordic_af": "cordic_af_kernel",
            "cordic_softmax": "cordic_softmax_kernel",
@@ -1073,14 +1196,16 @@ def launches_per_decode_step(cfg, pol) -> dict:
 
 def modes_per_decode_step(cfg, pol) -> dict:
     """The fused GEMM's launches per decode step by kernel mode: every
-    GEMM on the wide mode past 8 bits; the three routed expert banks of a
-    MoE layer on a batched mode; packed modes under FxP4."""
+    GEMM on the x32 mode past 16 bits and on the wide mode past 8 bits;
+    the three routed expert banks of a MoE layer on a batched mode;
+    packed modes under FxP4."""
     from repro_torch.core.fxp import FORMATS
     from repro_torch.kernels.fxp_gemm.fxp_gemm import GEMM_MODES
     n = launches_per_decode_step(cfg, pol)["fxp_gemm_fused"]
     out = dict.fromkeys(GEMM_MODES, 0)
-    if FORMATS[pol.matmul].bits > 8:
-        out["wide"] = n
+    bits = FORMATS[pol.matmul].bits
+    if bits > 8:
+        out["x32" if bits > 16 else "wide"] = n
         return out
     packed = pol.matmul == "fxp4"
     banks = 3 * cfg.n_layers if cfg.family == "moe" else 0
@@ -1390,6 +1515,8 @@ def main():
     gemm_rows = gemm_phase(dev, gen)
     wide_rows = wide_gemm_phase(dev,
                                 torch.Generator(device=dev).manual_seed(8))
+    x32_rows = x32_gemm_phase(dev,
+                              torch.Generator(device=dev).manual_seed(10))
     packed_bank = packed_batched_gemm_phase(
         dev, torch.Generator(device=dev).manual_seed(9))
     packed_rows = gemm_phase(dev, torch.Generator(device=dev).manual_seed(5),
@@ -1403,6 +1530,7 @@ def main():
     af_rows = cordic_af_phase(dev, torch.Generator(device=dev).manual_seed(3))
     sm_rows = cordic_softmax_phase(
         dev, torch.Generator(device=dev).manual_seed(4))
+    check_quantize_phase(dev)
     for arch, policy_name in PATHS:
         if policy_name != "fleet":
             check_phase(dev, arch, policy_name)
@@ -1418,6 +1546,7 @@ def main():
     w1 = next(r for r in gemm_rows if r["af"] == "silu")
     pw1 = next(r for r in packed_rows if r["af"] == "silu")
     ww1 = next(r for r in wide_rows if r["af"] == "silu")
+    xw1 = next(r for r in x32_rows if r["af"] == "silu" and r["bits"] == 32)
     gemm_src = "src/repro_torch/csrc/fxp_gemm.cu"
     gemm_ref = "src/repro/kernels/fxp_gemm/fxp_gemm.py"
     attn_src = "src/repro_torch/csrc/paged_attention.cu"
@@ -1448,6 +1577,13 @@ def main():
                            "(Qwen2.5-14B w1), FxP16 codes in int16 (the "
                            "fxp16 replica; fxp_gemm_fused_pallas on >8-bit "
                            "codes)"),
+        kernel_entry("fxp_gemm_fused_x32", gemm_src, f"{gemm_ref}:158",
+                     xw1, launches, "qwen2_5_14b/fxp32",
+                     counter="fxp_gemm_fused:x32", call_ms=xw1["call_ms"],
+                     shape=f"M={xw1['m']} K={xw1['k']} N={xw1['n']} +silu "
+                           "(Qwen2.5-14B w1), FxP32 codes in int32 (the "
+                           "fxp32 path; fxp_gemm_fused_pallas on int32 "
+                           f"codes, its f32 accumulator {gemm_ref}:193)"),
         kernel_entry("fxp_gemm_fused_batched_packed", gemm_src,
                      f"{gemm_ref}:158", packed_bank, launches,
                      "deepseek_moe_16b/edge4",

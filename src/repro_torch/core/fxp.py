@@ -73,12 +73,19 @@ def code_dtype(fmt: FxPFormat) -> torch.dtype:
 
 def quantize(x: torch.Tensor, fmt: FxPFormat, scale=None, axis=None):
     """-> (int codes (narrowest dtype), scale). Clipped to [qmin, qmax];
-    `torch.round` rounds half to even, as the reference grid does."""
+    `torch.round` rounds half to even, as the reference grid does.
+
+    Past 24 bits qmax is not an f32: FxP32's 2^31 - 1 rounds to 2^31, so
+    the f32 clamp lets 2^31 through, which the f32 -> int32 cast wraps to
+    -2^31 on the CPU. XLA's cast saturates it to 2^31 - 1; so do these
+    codes, clamped again in int64, on every device."""
     if scale is None:
         scale = dynamic_scale(x, fmt, axis=axis)
     codes = torch.round(x.float() / scale)
-    codes = torch.clamp(codes, fmt.qmin, fmt.qmax).to(code_dtype(fmt))
-    return codes, scale
+    codes = torch.clamp(codes, fmt.qmin, fmt.qmax)
+    if fmt.bits > 24:
+        codes = codes.to(torch.int64).clamp_(fmt.qmin, fmt.qmax)
+    return codes.to(code_dtype(fmt)), scale
 
 
 def dequantize(codes: torch.Tensor, scale: torch.Tensor,

@@ -154,17 +154,15 @@ class QuantizedActivation(NamedTuple):
 def quantize_activation(x: torch.Tensor, w,
                         policy: Optional[PrecisionPolicy]):
     """`x` quantized the way `qmatmul(x, w, policy)` quantizes it, when
-    that is the integer path (a quantize-once weight and an activation
-    format of <= 16 bits: int8 codes up to FxP8, int16 codes for FxP12
-    and FxP16), per tensor, with the true divide of `core.fxp.quantize`;
+    that is the integer path (a quantize-once weight: int8 codes up to
+    FxP8, int16 codes for FxP12 and FxP16, int32 codes for FxP24 and
+    FxP32), per tensor, with the true divide of `core.fxp.quantize`;
     otherwise `x` unchanged. Every `qmatmul` of the result against such
     weights gives what it gives on `x`, bit for bit."""
-    if not isinstance(w, QuantizedTensor) or w.fmt.bits > 16:
+    if not isinstance(w, QuantizedTensor):
         return x
     fmt_x = FORMATS[policy.matmul if policy is not None
                     and policy.matmul is not None else w.fmt_name]
-    if fmt_x.bits > 16:
-        return x
     *lead, kdim = x.shape
     codes, scale = quantize(x.reshape(-1, kdim).float(), fmt_x)
     return QuantizedActivation(codes, scale, tuple(lead), x.dtype)

@@ -21,6 +21,8 @@
 //    (fxp_gemm_codes_int8 on int8 codes or packed FxP4 weights,
 //    fxp_gemm_codes_int16). Each mode is its own instantiation of one
 //    template;
+//  * the CUDA cores (x32::fxp_gemm_x32_kernel): FxP24/32 codes in int32
+//    (fxp_gemm_fused_x32), the PE's 1X FxP32 mode, with the same epilogue;
 //  * a plain tiled int32 multiply-add (gemm_codes_wide_kernel): raw
 //    int32 codes. As in the reference, the caller owns the overflow-free
 //    bound K * qmax^2 < 2^31 past 8 bits.
@@ -118,6 +120,27 @@
 //    On packed weights the claiming loop's registers leave two 256-thread
 //    blocks on an SM instead of three, which cost the packed prefill and
 //    full banks about 5%, so packed banks stay on the grid.
+//
+// The x32 kernel (int32 codes). A product of two codes reaches 2^62 and
+// a sum over K rows needs more than 64 bits (~2^76 at K 13824), so the
+// exact sum is held in 128 bits and rounded once to f32, to nearest even,
+// in integer arithmetic: through f64 it would round twice. Each
+// activation code a splits into a signed high half h = a >> 16 and an
+// unsigned low half l = a & 0xFFFF; a lane sums h * w and l * w over its
+// k rows in two int64 accumulators, one mad.wide.s32 each (|h w| < 2^46,
+// |l w| < 2^47: exact for up to 2^16 rows, and a block's slice is at most
+// kMaxKSplit = 32768), and h * 2^16 + l becomes a 128-bit sum only after
+// the k loop. A lane takes 4 columns (one 16-byte load of a weight row)
+// and 4 activation rows; the lanes of a warp hold 32 k of each row and
+// pass them round by shuffles, so the kernel needs no shared memory in its
+// k loop. A block's four warps take turns over 32-row chunks of its K
+// slice on the same 128 columns and sum in shared memory. Split K: each
+// block writes its slice's 128-bit partials to a slot of its own (no
+// atomics, nothing zeroed), and the last block of a tile, counted by a
+// semaphore, adds the slots. With 2 mad.wide a product, the decode shapes
+// (4 rows) sit near both the bytes bound and the CUDA cores' integer
+// rate; the tensor cores (16 byte-plane products of 4 planes) are not
+// used.
 //
 // Not yet: wgmma and TMA (at M <= 32 these shapes are bound by bytes, far
 // below mma.sync's integer rate); a balanced (stream-K) split of K, so
@@ -836,6 +859,228 @@ int dispatch(const T* a, const T* b, const float* scale, void* out,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// FxP24/32 codes in int32 on the CUDA cores (see the header)
+// ---------------------------------------------------------------------------
+namespace x32 {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 4;            // a lane's columns: one 16-byte load
+constexpr int kBN = 32 * kCols;     // a block's columns
+constexpr int kMT = 4;              // activation rows of a row tile
+constexpr int kGroup = 8;           // weight rows a lane loads at once
+constexpr int kMaxKSplit = 32768;   // k rows of a block: the int64 sums of
+                                    // l * w stay exact (< 2^16 rows)
+
+// A signed 128-bit integer, hi * 2^64 + lo.
+struct I128 {
+  long long hi;
+  unsigned long long lo;
+};
+
+__device__ __forceinline__ I128 add128(I128 a, I128 b) {
+  I128 r;
+  r.lo = a.lo + b.lo;
+  r.hi = a.hi + b.hi + (r.lo < a.lo ? 1 : 0);
+  return r;
+}
+
+// h * 2^16 + l
+__device__ __forceinline__ I128 join(long long h, long long l) {
+  return add128(I128{h >> 48, static_cast<unsigned long long>(h) << 16},
+                I128{l >> 63, static_cast<unsigned long long>(l)});
+}
+
+// v rounded once to f32, to nearest even: |v| keeps its top 64 bits with
+// every bit shifted out ORed into bit 0 (round to odd, 40 bits below
+// f32's 24), which one conversion then rounds correctly; the power-of-two
+// scale back is exact.
+__device__ __forceinline__ float to_f32_rn(I128 v) {
+  unsigned long long hi = static_cast<unsigned long long>(v.hi);
+  unsigned long long lo = v.lo;
+  const bool neg = v.hi < 0;
+  if (neg) {
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+  float f;
+  if (hi == 0ull) {
+    f = __ull2float_rn(lo);
+  } else {
+    const int s = 64 - __clzll(static_cast<long long>(hi));   // 1..64
+    const unsigned long long m =
+        s == 64 ? (hi | (lo != 0ull ? 1ull : 0ull))
+                : (hi << (64 - s)) | (lo >> s) |
+                      ((lo << (64 - s)) != 0ull ? 1ull : 0ull);
+    f = __fmul_rn(__ull2float_rn(m), __int_as_float((127 + s) << 23));
+  }
+  return neg ? -f : f;
+}
+
+__device__ __forceinline__ void mad_wide(long long& acc, int a, int b) {
+  asm("mad.wide.s32 %0, %1, %2, %0;\n" : "+l"(acc) : "r"(a), "r"(b));
+}
+
+// Columns c0..c0+3 of weight row k (zero past k1 or N); `vec`: 16-byte
+// loads (rows 16-byte aligned, N a multiple of 4).
+__device__ __forceinline__ void load_row(const int* __restrict__ B, int k,
+                                         int k1, int N, int c0, int vec,
+                                         int (&b)[kCols]) {
+  const int* row = B + static_cast<size_t>(k) * N + c0;
+  if (vec) {
+    int4 v = make_int4(0, 0, 0, 0);
+    if (k < k1 && c0 < N) v = __ldg(reinterpret_cast<const int4*>(row));
+    b[0] = v.x;
+    b[1] = v.y;
+    b[2] = v.z;
+    b[3] = v.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      b[c] = (k < k1 && c0 + c < N) ? __ldg(row + c) : 0;
+    }
+  }
+}
+
+// Block (column tile x, K slice y, row tile z) of A int32 [M, K] @
+// B int32 [K, N]: out f32 [M, N] = AF(f32(sum) * scale[N]). Split K
+// (gridDim.y > 1): ws holds the slices' partials [gridDim.y][M][N] as
+// (lo, hi) words, counters one semaphore per (z, x), zeroed.
+__global__ void __launch_bounds__(kThreads, 3)
+fxp_gemm_x32_kernel(const int* __restrict__ A, const int* __restrict__ B,
+                    const float* __restrict__ scale, float* __restrict__ out,
+                    unsigned long long* __restrict__ ws,
+                    unsigned* __restrict__ counters, int M, int K, int N,
+                    int kps, int vec, int af, int lv_n, CordicParams cp) {
+  __shared__ long long red[kWarps][kMT][kBN][2];
+  __shared__ float fin[kMT][kBN];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.z * kMT;
+  const int k0 = blockIdx.y * kps;
+  const int k1 = min(K, k0 + kps);
+  const int c0 = n0 + kCols * lane;
+
+  long long acc[2][kMT][kCols];          // [0]: h * w, [1]: l * w
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int r = 0; r < kMT; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[p][r][c] = 0;
+
+  for (int kc = k0 + 32 * warp; kc < k1; kc += 32 * kWarps) {
+    // lane j: the halves of A[m0 + r][kc + j]
+    int ah[kMT], al[kMT];
+#pragma unroll
+    for (int r = 0; r < kMT; ++r) {
+      const int k = kc + lane;
+      const int a = (m0 + r < M && k < k1)
+          ? __ldg(A + static_cast<size_t>(m0 + r) * K + k) : 0;
+      ah[r] = a >> 16;
+      al[r] = a & 0xFFFF;
+    }
+#pragma unroll
+    for (int g = 0; g < 32; g += kGroup) {
+      int b[kGroup][kCols];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        load_row(B, kc + g + i, k1, N, c0, vec, b[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+        for (int r = 0; r < kMT; ++r) {
+          const int h = __shfl_sync(0xffffffffu, ah[r], g + i);
+          const int l = __shfl_sync(0xffffffffu, al[r], g + i);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            mad_wide(acc[0][r][c], h, b[i][c]);
+            mad_wide(acc[1][r][c], l, b[i][c]);
+          }
+        }
+      }
+    }
+  }
+
+  // the warps' sums, then thread tid owns column n0 + tid of the tile
+#pragma unroll
+  for (int r = 0; r < kMT; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      red[warp][r][kCols * lane + c][0] = acc[0][r][c];
+      red[warp][r][kCols * lane + c][1] = acc[1][r][c];
+    }
+  __syncthreads();
+  const int cn = n0 + tid;
+  const int rows = min(kMT, M - m0);
+  I128 v[kMT];
+#pragma unroll
+  for (int r = 0; r < kMT; ++r) {
+    long long h = 0, l = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      h += red[w][r][tid][0];
+      l += red[w][r][tid][1];
+    }
+    v[r] = join(h, l);
+  }
+  if (gridDim.y > 1) {
+    // this slice's partials into its own slot, then the last block of the
+    // tile (the fences as in the tensor-core core) adds every slot
+    auto slot = [&](int y, int r) {
+      return ws + 2 * ((static_cast<size_t>(y) * M + m0 + r) * N + cn);
+    };
+#pragma unroll
+    for (int r = 0; r < kMT; ++r) {
+      if (r < rows && cn < N) {
+        unsigned long long* p = slot(blockIdx.y, r);
+        p[0] = v[r].lo;
+        p[1] = static_cast<unsigned long long>(v[r].hi);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+      const unsigned prev =
+          atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
+      is_last = prev + 1 == gridDim.y;
+      if (is_last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (!is_last) return;
+#pragma unroll
+    for (int r = 0; r < kMT; ++r) {
+      v[r] = I128{0, 0ull};
+      if (r < rows && cn < N) {
+        for (int y = 0; y < static_cast<int>(gridDim.y); ++y) {
+          const unsigned long long* p = slot(y, r);
+          v[r] = add128(v[r], I128{static_cast<long long>(__ldcg(p + 1)),
+                                   __ldcg(p)});
+        }
+      }
+    }
+  }
+  const float sc = cn < N ? __ldg(scale + cn) : 0.f;
+#pragma unroll
+  for (int r = 0; r < kMT; ++r) fin[r][tid] = __fmul_rn(to_f32_rn(v[r]), sc);
+  // the AF in one rolled loop over the tile's rows (the CORDIC code
+  // inlined once), each row's stores coalesced
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    if (cn < N) {
+      out[static_cast<size_t>(m0 + r) * N + cn] =
+          apply_af(fin[r][tid], af, cp, lv_n);
+    }
+  }
+}
+
+}  // namespace x32
+
 // Raw products of int32 codes: a 32 x 32 output tile per block, A and B
 // staged in shared memory 32 k rows at a time, each thread four rows of
 // one column. Unsigned arithmetic wraps as the reference's int32 dot
@@ -959,6 +1204,28 @@ extern "C" int fxp_gemm_fused_wide(const int16_t* a, const int16_t* b,
                                    void* stream) {
   return tc::dispatch<int16_t, false>(a, b, scale, out, ws, counters, 1, M, K,
                                       N, N, kps, vec, af, lv_n, cp, stream);
+}
+
+// FxP24/32 codes in int32 on the CUDA cores: a [M, K], b [K, N]; kps at
+// most 32768; when K is split (kps < K) ws holds [K / kps][M][N] pairs of
+// 64-bit words and counters one zeroed word per (row tile of 4, column
+// tile of 128); `vec`: b's rows are 16-byte aligned and N a multiple of 4.
+extern "C" int fxp_gemm_fused_x32(const int32_t* a, const int32_t* b,
+                                  const float* scale, float* out,
+                                  unsigned long long* ws, unsigned* counters,
+                                  int M, int K, int N, int kps, int vec,
+                                  int af, int lv_n, const CordicParams* cp,
+                                  void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps > x32::kMaxKSplit ||
+      (K + kps - 1) / kps > 65535 || (M + x32::kMT - 1) / x32::kMT > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid((N + x32::kBN - 1) / x32::kBN, (K + kps - 1) / kps,
+            (M + x32::kMT - 1) / x32::kMT);
+  x32::fxp_gemm_x32_kernel<<<grid, x32::kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Raw int32 products on the tensor-core core, no epilogue: int8 codes

@@ -20,11 +20,12 @@ backend, one batched launch of the same GEMM kernel on the kernels
 backend (int8 or packed FxP4 banks), with the same per-expert activation
 codes and scales.
 
-Quantize-once weights of up to 16 bits take the kernel op's contract on
+Quantize-once weights of every width take the kernel op's contract on
 both backends: activation codes, the exact integer sum rounded once to
-f32, the folded scale. Past 8 bits the reference differs here: its plain
-backend dequantizes the weight and runs an f32 dot of fake-quantized
-operands, its Pallas backend sums the codes in f32 (ROADMAP.md queue 3).
+f32 (held in 128 bits for FxP24/32 codes), the folded scale. Past 8 bits
+the reference differs here: its plain backend dequantizes the weight and
+runs an f32 dot of fake-quantized operands, its Pallas backend sums the
+codes in f32 (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -92,11 +93,11 @@ def _af_on_accumulator(out, af, policy):
 
 @register("matmul", "reference")
 def _matmul_reference(x, w, policy, af=None):
-    """Plain path. Quantize-once weights (<= 16 bits): quantize the
-    activation, exact integer product, dequant by the folded scale —
-    bit-identical to the kernel path. Float weights: fake-quant operands
-    and an f32 product. The optional `af` runs on the accumulator output
-    before the cast back to x.dtype."""
+    """Plain path. Quantize-once weights: quantize the activation, exact
+    integer product, dequant by the folded scale — bit-identical to the
+    kernel path. Float weights: fake-quant operands and an f32 product.
+    The optional `af` runs on the accumulator output before the cast back
+    to x.dtype."""
     xa = (x if isinstance(x, QuantizedActivation)
           else quantize_activation(x, w, policy))
     if isinstance(xa, QuantizedActivation):
@@ -106,12 +107,7 @@ def _matmul_reference(x, w, policy, af=None):
             out = _af_on_accumulator(out, af, policy)
         return out.reshape(*xa.lead, w.n).to(xa.dtype)
     orig_dtype = x.dtype
-    if isinstance(w, QuantizedTensor):
-        w = w.dequantize(torch.float32)
-        x = x.float()
-        if policy is not None and policy.matmul is not None:
-            x = fake_quant(x, FORMATS[policy.matmul])
-    elif policy is not None and policy.matmul is not None:
+    if policy is not None and policy.matmul is not None:
         x = fake_quant(x, FORMATS[policy.matmul])
         w = fake_quant(w, FORMATS[policy.matmul])
     out = torch.matmul(x.float(), w.float())
@@ -135,10 +131,6 @@ def _matmul_kernels(x, w, policy, af=None):
                             w.shape[-1], False)
     xa = (x if isinstance(x, QuantizedActivation)
           else quantize_activation(x, w, policy))
-    if not isinstance(xa, QuantizedActivation):
-        raise NotImplementedError(
-            "the fxp_gemm kernel takes codes of <= 16 bits, not "
-            f"{w.fmt_name} weights under {policy.matmul} activations")
     if w.ndim != 2:
         raise ValueError("kernel matmul wants a 2-D (per-layer) weight")
     scale = (xa.scale * w.scale).float().expand(1, w.n)
@@ -215,8 +207,8 @@ def _expert_matmul_kernels(x, w, policy, af=None):
     order), the folded [E, 1, N] scales, then the batched GEMM kernel.
     Packed FxP4 banks launch the batched kernel's packed mode (the int32
     words seen as nibble bytes [E, K, 4 * words]). Float banks and >8-bit
-    formats take the per-expert loop (the wide mode, one launch per
-    expert)."""
+    formats take the per-expert loop (the wide or x32 mode, one launch per
+    expert), as the reference loops every bank."""
     fmt_x = (FORMATS[policy.matmul if policy is not None
                      and policy.matmul is not None else w.fmt_name]
              if isinstance(w, QuantizedTensor) else None)

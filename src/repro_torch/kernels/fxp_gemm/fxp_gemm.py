@@ -25,9 +25,16 @@ Modes, each its own kernel instantiation (`launches_by_mode` counts them):
                 the exact sum rounds once to f32 (`byte_plane_matmul` is
                 that arithmetic in plain PyTorch); exact while
                 K * 2^30 < 2^53;
+  * x32       — int32 codes (FxP24/32, the PE's 1X FxP32 mode): products
+                reach 2^62 and a sum over K rows needs more than 64 bits,
+                so the exact sum is held in 128 bits and rounded once to
+                f32 (to nearest even) in integer arithmetic, never through
+                f64, which would round twice. The plain version sums
+                16-bit halves of the codes (`limb_matmul`, rounded by
+                `limbs_to_f32`); the kernel runs on the CUDA cores;
   * batched and batched_packed — the expert banks, int8 or packed.
-Every mode, and the raw int8, int16 and packed code GEMMs, runs on one
-tensor-core core (`fxp_gemm_tc_kernel`): `mma.sync` tiles fed by
+Every mode but x32, and the raw int8, int16 and packed code GEMMs, runs
+on one tensor-core core (`fxp_gemm_tc_kernel`): `mma.sync` tiles fed by
 asynchronous copies, the nibbles of packed weights turned into int8
 fragments in registers as 16 times their codes, the factor shifted off
 the exact int32 sum. The grid splits K across blocks to fill the card
@@ -39,8 +46,9 @@ about it). At decode every
 one of them is bound by reading the weight once.
 The reference's Pallas kernel sums codes wider than 8 bits in f32 in
 XLA's order (int32 only under its `wide_exact` bound K * qmax^2 < 2^31,
-where this port equals it bit for bit); the port's exact sum is within
-one f32 rounding per step of the reference's.
+where this port equals it bit for bit; int32 codes are first rounded to
+f32 themselves); the port's exact sum is within one f32 rounding per
+step of the reference's.
 
 `fxp_gemm_codes` and `fxp4_gemm_packed` are the raw code GEMMs: the exact
 int32 product with no epilogue, on int8 or wider codes (the caller owns the
@@ -63,8 +71,8 @@ __all__ = ["FUSED_AFS", "fxp_gemm_fused", "fxp_gemm_fused_plain",
            "fxp_gemm_fused_batched", "fxp_gemm_fused_batched_plain",
            "fxp_gemm_codes", "fxp_gemm_codes_plain", "fxp4_gemm_packed",
            "fxp4_gemm_packed_plain", "unpack_nibbles", "int_matmul",
-           "exact_matmul", "byte_plane_matmul", "k_split", "GEMM_MODES",
-           "reset_launches"]
+           "exact_matmul", "byte_plane_matmul", "limb_matmul", "limbs_to_f32",
+           "k_split", "x32_split", "GEMM_MODES", "reset_launches"]
 
 #: AFs the fused epilogue supports (the Flex-PE Sel_AF set minus softmax).
 FUSED_AFS = KERNEL_AFS
@@ -76,9 +84,14 @@ _TC_ROW_BYTES = 128   # tc::kRowBytes in csrc/fxp_gemm.cu (the tensor-core
 _TC_BLOCK_K = 128     # tc::kBK: k rows per stage
 _MAX_KPS_WIDE = 32768  # tc::kMaxKSplitWide: 2 * 128 * 255 * 32768 < 2^31
 _PLAIN_COLS = 16384   # column chunk of the plain product (bounds its f64)
+_PLANE_K = 1 << 20    # K rows of a plain f64 product of 16-bit halves
+_X32_COLS = 128       # x32::kBN in csrc/fxp_gemm.cu: a block's columns
+_X32_ROWS = 4         # x32::kMT: activation rows of a row tile
+_X32_STEP = 128       # x32::kWarps * 32: k rows the block's warps take at once
+_MAX_KPS_X32 = 32768  # x32::kMaxKSplit: a block's int64 half sums stay exact
 
 #: the fused GEMM's kernel modes, counted per launch
-GEMM_MODES = ("int8", "packed", "wide", "batched", "batched_packed")
+GEMM_MODES = ("int8", "packed", "wide", "x32", "batched", "batched_packed")
 
 
 def exact_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
@@ -124,6 +137,52 @@ def byte_plane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
     return total
 
 
+def limb_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact integer product of codes of up to 32 bits, in plain
+    PyTorch on any device -> two int64 limbs (hi, lo) [M, N], the sum
+    being hi * 2^32 + lo with 0 <= lo < 2^32. Each code c splits into a
+    signed high half h = c >> 16 and an unsigned low half l = c & 0xFFFF;
+    the plane sums hh, hl + lh and ll of a K slice of at most 2^20 rows
+    are f64 products of integers (each |sum| <= K * 2^32 < 2^53, exact in
+    any order), added in int64 over the slices, and combined as
+    (hh << 32) + ((hl + lh) << 16) + ll without leaving int64. Columns go
+    in chunks to bound the f64 temporaries."""
+    x = x_codes.to(torch.int64)
+    xh, xl = (x >> 16).double(), (x & 0xFFFF).double()
+    k = x.shape[1]
+    his, los = [], []
+    for j in range(0, w_codes.shape[1], _PLAIN_COLS):
+        w = w_codes[:, j:j + _PLAIN_COLS].to(torch.int64)
+        wh, wl = (w >> 16).double(), (w & 0xFFFF).double()
+        hh = mid = ll = 0
+        for k0 in range(0, k, _PLANE_K):
+            ks = slice(k0, k0 + _PLANE_K)
+            a, b, c, d = xh[:, ks], xl[:, ks], wh[ks], wl[ks]
+            hh = hh + (a @ c).long()
+            mid = mid + (a @ d + b @ c).long()
+            ll = ll + (b @ d).long()
+        lo = ((mid & 0xFFFF) << 16) + ll          # >= 0: l and ll are
+        his.append(hh + (mid >> 16) + (lo >> 32))  # unsigned
+        los.append(lo & 0xFFFFFFFF)
+    return torch.cat(his, dim=1), torch.cat(los, dim=1)
+
+
+def limbs_to_f32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """hi * 2^32 + lo (0 <= lo < 2^32) rounded once to f32, to nearest
+    even. Where the sum fits in int64 (-2^31 <= hi < 2^31) it is formed
+    and converted, which rounds once; past that (|sum| >= 2^63, where f32
+    steps are 2^40 apart) the sum's bits below 2^32 only break ties, so
+    2 hi + (lo != 0) holds the same rounding at 2^-31 of the scale: the
+    low bit marks a sum strictly between two multiples of 2^32, where no
+    f32 value or midpoint lies. Both converted values are exact in int64
+    and round once; the power-of-two scale is exact."""
+    fits = (hi >= -(1 << 31)) & (hi < (1 << 31))
+    exact = (hi.clamp(-(1 << 31), (1 << 31) - 1) << 32) + lo
+    sticky = (hi << 1) | (lo != 0).long()
+    return torch.where(fits, exact.float(), sticky.float() * 2.0 ** 31)
+
+
 def unpack_nibbles(w_bytes: torch.Tensor, n: Optional[int] = None
                    ) -> torch.Tensor:
     """Packed int8 bytes [K, NB] -> int8 codes [K, 2 NB] (the first `n`
@@ -142,10 +201,15 @@ def fxp_gemm_fused_plain(x_codes: torch.Tensor, w_codes: torch.Tensor,
                          packed: bool = False) -> torch.Tensor:
     """Plain version: the exact integer [M, N] product rounded once to
     f32, times scale [N] in f32, then the optional CORDIC AF. Codes of up
-    to 16 bits; `packed` weights are unpacked first."""
+    to 32 bits (int32 codes through `limb_matmul`); `packed` weights are
+    unpacked first."""
     if packed:
         w_codes = unpack_nibbles(w_codes, scale.numel())
-    out = exact_matmul(x_codes, w_codes).float() * scale.reshape(1, -1)
+    if torch.int32 in (x_codes.dtype, w_codes.dtype):
+        acc = limbs_to_f32(*limb_matmul(x_codes, w_codes))
+    else:
+        acc = exact_matmul(x_codes, w_codes).float()
+    out = acc * scale.reshape(1, -1)
     if af is not None:
         out = cordic_af_plain(out, af, hr_stages, lv_stages)
     return out
@@ -196,6 +260,18 @@ def k_split(m: int, k: int, n: int, experts: int = 1,
     return -(-kps // _TC_BLOCK_K) * _TC_BLOCK_K
 
 
+def x32_split(m: int, k: int, n: int) -> int:
+    """K rows per block of the x32 kernel: enough K slices for about two
+    blocks per SM over its (column tile, row tile) grid, at least one
+    step of its warps' 128 rows, at most `_MAX_KPS_X32`, a multiple of
+    128."""
+    tiles = -(-n // _X32_COLS) * -(-m // _X32_ROWS)
+    splits = max(-(-k // _MAX_KPS_X32),
+                 min(max(1, -(-2 * _SMS // tiles)), -(-k // _X32_STEP)))
+    kps = -(-k // splits)
+    return -(-kps // _X32_STEP) * _X32_STEP
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                   ctypes.c_int),
@@ -207,6 +283,8 @@ _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                                  + [_P, _P], ctypes.c_int),
                "fxp_gemm_fused_wide": ([_P] * 6 + [_I] * 7 + [_P, _P],
                                        ctypes.c_int),
+               "fxp_gemm_fused_x32": ([_P] * 6 + [_I] * 7 + [_P, _P],
+                                      ctypes.c_int),
                "fxp_gemm_codes_int8": ([_P] * 5 + [_I] * 7 + [_P],
                                        ctypes.c_int),
                "fxp_gemm_codes_int16": ([_P] * 5 + [_I] * 5 + [_P],
@@ -315,7 +393,40 @@ def _launch_wide(x_codes, w_codes, scale, af, hr_stages, lv_stages):
     return out
 
 
-_KERNEL_CODES = (torch.int8, torch.int16)
+def _launch_x32(x_codes, w_codes, scale, af, hr_stages, lv_stages):
+    """One launch of the x32 kernel over int32 x [M, K], w [K, N] and
+    scale [N] (CUDA, checked by the caller) -> f32 [M, N]. With K split,
+    the workspace holds each slice's 128-bit partial sums (two int64
+    words an output, written once, not zeroed) and then one zeroed
+    semaphore per (row tile, column tile)."""
+    m, k = x_codes.shape
+    n = scale.numel()
+    x_codes = x_codes.contiguous()
+    w_codes = w_codes.contiguous()
+    scale = scale.reshape(n).to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
+    kps = x32_split(m, k, n)
+    splits = -(-k // kps)
+    acc = 2 * splits * m * n if splits > 1 else 0
+    sems = -(-n // _X32_COLS) * -(-m // _X32_ROWS) if splits > 1 else 0
+    ws = torch.empty(acc + -(-sems // 2) + 1, dtype=torch.int64,
+                     device=x_codes.device)
+    if sems:
+        ws[acc:].zero_()
+    vec = int(n % 4 == 0 and w_codes.data_ptr() % 16 == 0)
+    err = library("fxp_gemm", _SIGNATURES).fxp_gemm_fused_x32(
+        x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), ws[acc:].data_ptr(), m, k, n, kps,
+        vec, AF_CODE[af], lv_stages, ctypes.byref(cordic_params(hr_stages)),
+        _stream(x_codes))
+    if err != 0:
+        raise RuntimeError(f"fxp_gemm_fused x32 launch failed: CUDA error "
+                           f"{err}")
+    _count("x32")
+    return out
+
+
+_KERNEL_CODES = (torch.int8, torch.int16, torch.int32)
 
 
 def _check_kernel_operands(x_codes, w_codes, scale):
@@ -327,8 +438,8 @@ def _check_kernel_operands(x_codes, w_codes, scale):
     if (x_codes.dtype not in _KERNEL_CODES
             or w_codes.dtype not in _KERNEL_CODES):
         raise NotImplementedError(
-            f"fxp_gemm_fused kernel takes int8 or int16 codes (FxP <= 16), "
-            f"not {x_codes.dtype} and {w_codes.dtype}")
+            f"fxp_gemm_fused kernel takes int8, int16 or int32 codes, not "
+            f"{x_codes.dtype} and {w_codes.dtype}")
 
 
 def _check_packed(w_bytes, n):
@@ -342,10 +453,10 @@ def fxp_gemm_fused(x_codes: torch.Tensor, w_codes: torch.Tensor,
                    hr_stages: int = 4, lv_stages: int = 5,
                    packed: bool = False) -> torch.Tensor:
     """x_codes [M, K] @ w_codes [K, N] -> f32 [M, N] = AF(acc * scale[N]),
-    on int8 codes, or int16 codes (the wide mode; an int8 operand beside
-    an int16 one is widened); with `packed`, w_codes is packed FxP4 bytes
-    [K, NB] and N = scale.numel(). CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
+    on int8 codes, int16 codes (the wide mode) or int32 codes (the x32
+    mode; a narrower operand beside a wider one is widened); with
+    `packed`, w_codes is packed FxP4 bytes [K, NB] and N = scale.numel().
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if af is not None and af not in FUSED_AFS:
         raise ValueError(f"unsupported fused af {af!r}")
     k = x_codes.shape[1]
@@ -362,10 +473,13 @@ def fxp_gemm_fused(x_codes: torch.Tensor, w_codes: torch.Tensor,
         return fxp_gemm_fused_plain(x_codes, w_codes, scale, af, hr_stages,
                                     lv_stages, packed)
     _check_kernel_operands(x_codes, w_codes, scale)
+    if packed and torch.int8 != x_codes.dtype:
+        raise ValueError("packed weights hold FxP4 codes; the activation "
+                         "codes must be int8")
+    if torch.int32 in (x_codes.dtype, w_codes.dtype):
+        return _launch_x32(x_codes.to(torch.int32), w_codes.to(torch.int32),
+                           scale, af, hr_stages, lv_stages)
     if x_codes.dtype == torch.int16 or w_codes.dtype == torch.int16:
-        if packed:
-            raise ValueError("packed weights hold FxP4 codes; the activation "
-                             "codes must be int8")
         return _launch_wide(x_codes.to(torch.int16), w_codes.to(torch.int16),
                             scale, af, hr_stages, lv_stages)
     return _launch(x_codes[None], w_codes[None], scale, af, hr_stages,

@@ -4,8 +4,10 @@
         --policy flexpe-fxp8 --kv-block-size 16 --requests 8 --slots 4 \\
         --prompt-len 64 --mixed --gen 16
 
-`--arch deepseek_moe_16b` serves the MoE family the same way, and
-`--policy edge4` serves FxP4 (packed-nibble weights, FxP4 activations).
+`--arch deepseek_moe_16b` serves the MoE family the same way,
+`--policy edge4` serves FxP4 (packed-nibble weights, FxP4 activations),
+and `--policy flexpe-fxp32` (or `flexpe-fxp24`) the PE's FxP32 mode
+(int32 codes, every GEMM on the fused GEMM's x32 mode).
 A precision-tiered fleet serves one replica per tier from one shared
 `TieredWeights` bank (`--policy` does not apply there):
 

@@ -17,9 +17,10 @@ with its per-tensor FxP snaps is one launch and one device record,
 bit-equal to the plain op (NaN where it gives NaN), twice and under a
 CUDA graph's replay; a reduced
 MoE layer through the kernels is bit-equal to the plain backend. The
-packed-FxP4 GEMM and the raw code GEMMs are bit-equal (exact int32 sums);
-the integer attention's dots are exact, but its softmax sums and
-exponentiates in another order than torch's, and a p x v_scale code that
+packed-FxP4 GEMM and the raw code GEMMs are bit-equal (exact int32 sums),
+and so is the x32 mode on FxP24/32 codes (the exact sum in 128 bits,
+rounded once to f32), also at the ends of int32; the integer attention's
+dots are exact, but its softmax sums and exponentiates in another order than torch's, and a p x v_scale code that
 flips with that moves the output by one v step times the row scale: it
 is held within 1% of the output's range. The GEMM's wide mode (int16
 codes, byte planes on the tensor cores) takes the exact integer sum and
@@ -275,17 +276,131 @@ def test_paged_attention_int_kernel_matches_plain(cuda, g, c, scratch):
 
 
 def test_unported_paths_raise_on_cuda(cuda):
-    """Codes wider than 16 bits have no kernel (their f64 sums would not
-    be exact), and banks of int16 codes no batched one (the dispatch runs
-    them per expert): both raise on the card, never fall back."""
-    x = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
-    w = torch.zeros((16, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="int8 or int16"):
-        fxp_gemm_fused(x, w, torch.ones(8, device=cuda))
-    xb = torch.zeros((2, 3, 16), dtype=torch.int16, device=cuda)
-    wb = torch.zeros((2, 16, 8), dtype=torch.int16, device=cuda)
-    with pytest.raises(NotImplementedError, match="per expert"):
-        fxp_gemm_fused_batched(xb, wb, torch.ones((2, 8), device=cuda))
+    """Banks of codes wider than 8 bits have no batched kernel (the
+    dispatch runs them per expert on the wide or x32 mode), and codes that
+    are not integers no kernel at all: both raise on the card, never fall
+    back."""
+    for dtype in (torch.int16, torch.int32):
+        xb = torch.zeros((2, 3, 16), dtype=dtype, device=cuda)
+        wb = torch.zeros((2, 16, 8), dtype=dtype, device=cuda)
+        with pytest.raises(NotImplementedError, match="per expert"):
+            fxp_gemm_fused_batched(xb, wb, torch.ones((2, 8), device=cuda))
+    x = torch.zeros((2, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="int8, int16 or int32"):
+        fxp_gemm_fused(x, x.t().contiguous(), torch.ones(2, device=cuda))
+
+
+def _x32_operands(rng, cuda, m, k, n, ends, q=(1 << 31) - 1):
+    """int32 codes in [-q - 1, q] and a scale; `ends`: codes at the ends
+    of int32 (+-(2^31 - 1), -2^31, none exact in f32), columns of one
+    sign, sums of K * 2^62 past 2^64."""
+    if ends:
+        x = torch.full((m, k), q, dtype=torch.int32, device=cuda)
+        x[1 % m] = -q - 1
+        x[-1, ::3] = -q
+        cols = torch.arange(n, device=cuda)
+        w = torch.where(cols % 2 == 0, q, -q).to(torch.int32)
+        w = w.expand(k, n).clone()
+        w[:, 2 % n] = -q - 1
+        w[::5, 3 % n] = 0
+        scale = torch.full((n,), 2.0 ** -70, device=cuda)
+    else:
+        x = torch.from_numpy(rng.integers(-q - 1, q, (m, k), endpoint=True,
+                                          dtype=np.int32)).to(cuda)
+        w = torch.from_numpy(rng.integers(-q - 1, q, (k, n), endpoint=True,
+                                          dtype=np.int32)).to(cuda)
+        scale = torch.from_numpy((rng.random(n) / (float(q) ** 2 * k ** 0.5)
+                                  ).astype(np.float32)).to(cuda)
+    return x, w, scale
+
+
+@pytest.mark.parametrize("m,k,n,ends", [
+    (4, 5120, 5120, False), (4, 5120, 1024, False), (4, 5120, 13824, False),
+    (4, 13824, 5120, False), (4, 5120, 152064, False),
+    (16, 5120, 5120, False), (13, 1030, 130, False), (3, 96, 1001, False),
+    (1, 40000, 300, False), (4, 13824, 5120, True), (16, 13824, 1001, True),
+    (5, 70000, 130, True)])
+@pytest.mark.parametrize("af", [None, "silu"])
+def test_x32_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, ends, af):
+    """FxP32 codes in int32 at Qwen2.5-14B's decode and prefill shapes, and
+    ragged M, K and N (N 130 and 1001 take the single-code loads; K 40000
+    and 70000 pass a block's 32768-row cap, whose slices add in 128 bits
+    across blocks): the exact integer sum rounded once to f32 on both
+    sides, bit-equal with and without the fused SiLU; one launch on the
+    x32 mode a call. `ends`: codes at the ends of int32."""
+    rng = np.random.default_rng(m * 31 + n + k)
+    x, w, scale = _x32_operands(rng, cuda, m, k, n, ends)
+    before = (fxp_gemm_fused.launches,
+              fxp_gemm_fused.launches_by_mode["x32"])
+    got = fxp_gemm_fused(x, w, scale, af=af, hr_stages=8, lv_stages=10)
+    assert (fxp_gemm_fused.launches,
+            fxp_gemm_fused.launches_by_mode["x32"]) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.equal(got, fxp_gemm_fused_plain(x, w, scale, af=af,
+                                                 hr_stages=8, lv_stages=10))
+    # FxP24 codes, and an int8 operand beside an int32 one (widened)
+    x24 = torch.clamp(x, -(1 << 23), (1 << 23) - 1)
+    w24 = torch.clamp(w, -(1 << 23), (1 << 23) - 1)
+    assert torch.equal(fxp_gemm_fused(x24, w24, scale, af=af),
+                       fxp_gemm_fused_plain(x24, w24, scale, af=af))
+    x8 = torch.clamp(x, -127, 127).to(torch.int8)
+    assert torch.equal(fxp_gemm_fused(x8, w, scale, af=af),
+                       fxp_gemm_fused_plain(x8, w, scale, af=af))
+
+
+@pytest.mark.parametrize("af", FUSED_AFS)
+def test_x32_gemm_kernel_every_af_bit_equal(cuda, af):
+    rng = np.random.default_rng(3)
+    x, w, scale = _x32_operands(rng, cuda, 4, 1030, 384, False)
+    for hr, lv in ((8, 10), (6, 8)):
+        assert torch.equal(
+            fxp_gemm_fused(x, w, scale, af=af, hr_stages=hr, lv_stages=lv),
+            fxp_gemm_fused_plain(x, w, scale, af=af, hr_stages=hr,
+                                 lv_stages=lv))
+
+
+def test_x32_gemm_runs_its_own_kernel(cuda):
+    """An int32 call's GEMM record is the x32 kernel's, never the
+    tensor-core core's, and a CUDA graph of three calls holds one kernel
+    node (a node type of 0) a call, and one more where K is split."""
+    rng = np.random.default_rng(4)
+    x, w, scale = _x32_operands(rng, cuda, 4, 5120, 1024, False)
+    names = _kernel_records(lambda: [fxp_gemm_fused(x, w, scale)
+                                     for _ in range(3)])
+    assert any("fxp_gemm_x32_kernel" in k for k in names), names
+    assert not any("fxp_gemm_tc_kernel" in k for k in names), names
+    # K split: each call zeroes its semaphores (a fill kernel) and
+    # launches once; unsplit (a grid that fills the card), no fill
+    fxp_gemm_fused(x, w, scale)          # builds and loads before capture
+    assert _graph_node_types(lambda: fxp_gemm_fused(x, w, scale),
+                             3).count(0) == 6
+    x, w, scale = _x32_operands(rng, cuda, 4, 512, 40000, False)
+    assert _graph_node_types(lambda: fxp_gemm_fused(x, w, scale),
+                             3).count(0) == 3
+
+
+def test_fxp32_quantize_saturates_on_the_card(cuda):
+    """The repaired FxP32 quantize on CUDA tensors: 1 / scale is 2^31 in
+    f32, which saturates to 2^31 - 1 as XLA's cast does (and as the CPU
+    quantize now does); with the same scale the card's codes equal the
+    CPU's at FxP24 and FxP32."""
+    x = torch.tensor([1.0, -1.0, 0.5, 0.3])
+    codes, _ = quantize(x.to(cuda), FORMATS["fxp32"])
+    assert codes.dtype == torch.int32
+    assert codes.tolist() == [(1 << 31) - 1, -(1 << 31), 1 << 30, 644245120]
+    rng = np.random.default_rng(5)
+    xr = torch.from_numpy(rng.normal(size=(64, 40)).astype(np.float32))
+    for fmt in ("fxp24", "fxp32"):
+        scale = quantize(xr, FORMATS[fmt], axis=1)[1]
+        assert torch.equal(
+            quantize(xr.to(cuda), FORMATS[fmt],
+                     scale=scale.to(cuda))[0].cpu(),
+            quantize(xr, FORMATS[fmt], scale=scale)[0])
+    # PyTorch's own f32 -> int32 cast on the card (PTX cvt.rzi) saturates
+    # 2^31, where the CPU's wraps it: without the repair the two devices'
+    # FxP32 codes would differ too
+    big = torch.tensor([2.0 ** 31, -(2.0 ** 31)], device=cuda)
+    assert big.to(torch.int32).tolist() == [(1 << 31) - 1, -(1 << 31)]
 
 
 @pytest.mark.parametrize("m,k,n,ends", [
@@ -810,13 +925,14 @@ def test_moe_layer_kernels_bit_equal_to_plain_backend(cuda):
         dispatch.expert_matmul(xe, bp["w1"], pol, backend="reference"))
 
 
-@pytest.mark.parametrize("name", ["edge4", "flexpe-fxp16"])
+@pytest.mark.parametrize("name", ["edge4", "flexpe-fxp16", "flexpe-fxp32"])
 def test_model_step_kernels_bit_equal_to_plain_backend(cuda, name):
     """Reduced DeepSeekMoE-16B under edge4 (packed FxP4 expert banks on
     the packed batched mode, one launch per bank) and reduced Qwen2.5-14B
-    under FxP16 (every GEMM on the wide mode): a prefill block and a
-    decode step through the kernels give the plain backend's logits bit
-    for bit."""
+    under FxP16 (every GEMM on the wide mode) and FxP32 (every GEMM on the
+    x32 mode, its KV codes wrapped into the int8 pool, the attention's
+    CORDIC softmax at FxP32's stages): a prefill block and a decode step
+    through the kernels give the plain backend's logits bit for bit."""
     from repro_torch.models import model as M
     arch = "deepseek_moe_16b" if name == "edge4" else "qwen2_5_14b"
     cfg = get_config(arch).reduced()
@@ -841,8 +957,9 @@ def test_model_step_kernels_bit_equal_to_plain_backend(cuda, name):
                for m, n in fxp_gemm_fused.launches_by_mode.items()
                if n != modes[m]}
         if backend == "kernels":
-            want = ({"packed", "batched_packed"} if name == "edge4"
-                    else {"wide"})
+            want = {"edge4": {"packed", "batched_packed"},
+                    "flexpe-fxp16": {"wide"},
+                    "flexpe-fxp32": {"x32"}}[name]
             assert set(ran) == want, ran
             if name == "edge4":     # three routed banks per layer and step
                 assert ran["batched_packed"] == 2 * 3 * cfg.n_layers

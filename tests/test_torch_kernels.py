@@ -150,22 +150,32 @@ def test_shared_activation_quantization_is_bit_identical(backend, af):
 
 
 def test_gemm_kernels_raise_on_unported_code_paths():
-    """What the kernels backend still refuses: the fused GEMM on codes
-    wider than 16 bits (FxP24/32, whose products an f64 sum would not hold
-    exactly), as a matrix and as an expert bank. FxP16 weights (the wide
-    mode) and packed FxP4 expert banks (the packed batched mode) run."""
+    """Every code width now has a kernel mode, so the kernels backend
+    refuses no FxP format: FxP24/32 weights (the x32 mode, int32 codes)
+    run as a matrix and as an expert bank (per expert) and equal the
+    plain path bit for bit, as do FxP16 weights (the wide mode) and packed
+    FxP4 expert banks (the packed batched mode). What it still refuses is
+    a stacked weight where a per-layer one belongs."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.normal(size=(2, 16)).astype(np.float32))
+    xe = torch.from_numpy(rng.normal(size=(1, 3, 2, 16)).astype(np.float32))
     for fmt in ("fxp24", "fxp32"):
-        wide = tquantize_tensor(torch.ones((16, 8)), fmt)
-        with pytest.raises(NotImplementedError, match="<= 16 bits"):
-            tdispatch.matmul(torch.zeros((2, 16)), wide,
-                             TPolicy.flexpe(int(fmt[3:]), backend="kernels"),
+        w = torch.from_numpy(rng.normal(size=(3, 16, 8)).astype(np.float32))
+        wide, bank = tquantize_tensor(w[0], fmt), tquantize_tensor(w, fmt)
+        assert wide.data.dtype == torch.int32
+        got = {be: (tdispatch.matmul(x, wide, TPolicy.flexpe(
+                        int(fmt[3:]), backend=be), backend=be),
+                    tdispatch.expert_matmul(xe, bank, TPolicy.flexpe(
+                        int(fmt[3:]), backend=be), backend=be))
+               for be in ("kernels", "reference")}
+        for a, b in zip(got["kernels"], got["reference"]):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(got["kernels"][0], x @ w[0], rtol=1e-5,
+                                   atol=1e-5)
+        with pytest.raises(ValueError, match="2-D"):
+            tdispatch.matmul(x, bank, TPolicy.flexpe(int(fmt[3:]),
+                                                     backend="kernels"),
                              backend="kernels")
-        bank = tquantize_tensor(torch.ones((3, 16, 8)), fmt)
-        with pytest.raises(NotImplementedError, match="<= 16 bits"):
-            tdispatch.expert_matmul(
-                torch.zeros((1, 3, 2, 16)), bank,
-                TPolicy.flexpe(int(fmt[3:]), backend="kernels"),
-                backend="kernels")
     w16 = tquantize_tensor(torch.ones((16, 8)), "fxp16")
     out = tdispatch.matmul(torch.ones((2, 16)), w16,
                            TPolicy.flexpe(16, backend="kernels"),
