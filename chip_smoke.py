@@ -37,17 +37,25 @@ Phases, one line each, any failure exits non-zero before the last line:
                 expert activations in bf16 under FxP8 and FxP4 and past
                 the resident grid's registers, and at the router's f32
                 rows under FxP8 and a wide row, and without a precision;
+                the shapes the SSM and hybrid paths add: the GEMM at
+                Mamba2-370M's and Zamba2-1.2B's projections, w1 + GELU
+                and lm_heads (decode rows and 16-row prefill chunks,
+                bit-equal), the float attention at Zamba2's plain
+                multi-head g 1, hd 64 over 32 KV heads (within 1%), the
+                CORDIC AF at the SSM gate's bf16 rows under FxP8
+                (bit-equal);
   4. check    — the FxP32 quantize on the card (it saturates to the
                 reference's codes); reduced Qwen2.5-14B (under FxP8,
-                edge4, integer attention and FxP32) and reduced
-                DeepSeekMoE-16B (FxP8 and edge4),
+                edge4, integer attention and FxP32), reduced
+                DeepSeekMoE-16B (FxP8 and edge4), reduced Mamba2-370M and
+                reduced Zamba2-1.2B (FxP8),
                 each served through the kernels and through the plain path
                 on the card: the same greedy tokens; the reduced fleet of
                 an fxp8 and an fxp16 replica over one TieredWeights bank:
                 the same tiers and tokens on both paths, and with every
                 request pinned to one tier, the tokens of a single engine
                 of that tier over the same bank;
-  5. serve    — seven paths, each at full width from seed 0: Qwen2.5-14B
+  5. serve    — nine paths, each at full width from seed 0: Qwen2.5-14B
                 (48 layers) with FxP8 weights, DeepSeekMoE-16B (28 layers)
                 with FxP8 weights, Qwen2.5-14B under edge4 (packed FxP4
                 weights and activations), Qwen2.5-14B under integer
@@ -58,22 +66,36 @@ Phases, one line each, any failure exits non-zero before the last line:
                 threshold 1.0, priority 0) and Qwen2.5-14B under FxP32
                 (48 layers of int32 weights, every GEMM on the x32 mode,
                 its KV codes wrapped into the int8 pool as the
-                reference's are); each with paged int8 KV (block
-                16), 4 slots (per replica), 8 mixed requests (prompts
+                reference's are), Mamba2-370M (48 SSM layers, FxP8, a
+                recurrent state per slot and no KV) and Zamba2-1.2B (38
+                SSM layers and 6 applications of one shared attention +
+                GELU MLP block, FxP8); each with paged int8 KV (block
+                16; none for Mamba2), 4 slots (per replica), 8 mixed
+                requests (prompts
                 40-64), 16 greedy tokens each, prefill chunk 16, overlap
                 loop; the launches of every kernel, and of each GEMM mode,
                 counted over each serve run (set to 0 just before it) and
                 per decode step (of each replica) against the model's
                 count, tokens identical on a rerun, one decode step of
                 each replica of the rerun traced with the profiler (kernel
-                device time and the device's idle share), memory on the
-                card and its peak.
+                device time and the device's idle share; where the
+                profiler loses records of every traced step, the step's
+                launches are counted as the kernel nodes of a captured
+                CUDA graph), memory on the card and its peak;
+  6. prefix   — after the Qwen2.5-14B FxP8 path, on its weights: 8
+                requests sharing a 48-token system prompt, cold, then
+                with the prefix cache under the sync and the overlap
+                loops (`prefix_phase`): the same tokens, prompt tokens
+                reused, fewer computed; and one mixed stream cold and
+                warm, reported.
 The second-to-last lines are the card line and the kernels JSON; the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -93,6 +115,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 SLOTS = 4
 FLEET = ("fxp8", "fxp16")      # the tiered fleet's replicas
 TRACE_TRIES = 3                # decode steps traced at most per replica
+WINDOW_TRIES = 5               # profiler windows taken at most per timing
 
 
 def fail(msg: str):
@@ -160,7 +183,8 @@ def profile_window(fn, iters: int) -> dict:
     return device_records(prof)
 
 
-def device_ms(fn, iters: int, match: str | None = None, tries: int = 3):
+def device_ms(fn, iters: int, match: str | None = None,
+              tries: int = WINDOW_TRIES):
     """(mean device time per call of `fn()` from the profiler's CUDA
     kernel records, records of `match` the last window held): the
     kernels whose name contains `match` (one launch per call), or every
@@ -219,28 +243,51 @@ def held_all(what, win, record="fxp_gemm_tc_kernel"):
              f"{win['iters']} calls")
 
 
-def gemm_phase(dev, gen, packed=False):
-    """The fused GEMM at the full-width models' shapes, on int8 codes or
-    (`packed`) on FxP4 codes with nibble-packed weights [K, N/2] bytes,
-    whose bytes bound counts half the int8 weight bytes: bit-equal to the
-    plain version, with the AF too. Each time counts the tensor-core
-    core's records, and each window must hold one per call."""
+# (M, K, N, af): Qwen2.5-14B's, then DeepSeekMoE-16B's dense GEMMs
+DENSE_GEMM_SHAPES = [(SLOTS, 5120, 5120, None),       # wq, wo
+                     (SLOTS, 5120, 1024, None),       # wk, wv
+                     (SLOTS, 5120, 13824, "silu"),    # w1 + fused silu
+                     (SLOTS, 5120, 13824, None),      # w3
+                     (SLOTS, 13824, 5120, None),      # w2
+                     (SLOTS, 5120, 152064, None),     # lm_head
+                     (16, 5120, 5120, None),          # a prefill chunk
+                     (SLOTS, 2048, 2048, None),       # moe q, k, v, o
+                     (SLOTS, 2048, 2816, None),       # moe shared w1, w3
+                     (SLOTS, 2816, 2048, None),       # moe shared w2
+                     (SLOTS, 2048, 102400, None)]     # moe lm_head
+
+# the SSM and hybrid paths' GEMMs: Mamba2-370M's, then Zamba2-1.2B's
+# (its q/k/v/o are the MoE path's 4 x 2048 x 2048), each at a decode
+# step's 4 rows and, but for the lm_head, a 16-row prefill chunk
+SSM_GEMM_SHAPES = [(SLOTS, 1024, 4384, None),         # mamba2 in_proj
+                   (16, 1024, 4384, None),
+                   (SLOTS, 2048, 1024, None),         # mamba2 out_proj
+                   (16, 2048, 1024, None),
+                   (SLOTS, 1024, 50432, None),        # mamba2 lm_head
+                   (SLOTS, 2048, 8384, None),         # zamba2 in_proj
+                   (16, 2048, 8384, None),
+                   (SLOTS, 4096, 2048, None),         # out_proj, shared in
+                   (16, 4096, 2048, None),
+                   (16, 2048, 2048, None),            # shared q, k, v, o
+                   (SLOTS, 2048, 8192, "gelu"),       # shared w1 + GELU
+                   (16, 2048, 8192, "gelu"),
+                   (SLOTS, 8192, 2048, None),         # shared w2
+                   (16, 8192, 2048, None),
+                   (SLOTS, 2048, 32000, None)]        # zamba2 lm_head
+
+
+def gemm_phase(dev, gen, packed=False, shapes=DENSE_GEMM_SHAPES,
+               label=None):
+    """The fused GEMM at the full-width models' shapes (`shapes`), on int8
+    codes or (`packed`) on FxP4 codes with nibble-packed weights [K, N/2]
+    bytes, whose bytes bound counts half the int8 weight bytes: bit-equal
+    to the plain version, with the AF too. Each time counts the
+    tensor-core core's records, and each window must hold one per call."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused, fxp_gemm_fused_plain)
-    # (M, K, N, af): Qwen2.5-14B's, then DeepSeekMoE-16B's dense GEMMs
-    shapes = [(SLOTS, 5120, 5120, None),       # wq, wo
-              (SLOTS, 5120, 1024, None),       # wk, wv
-              (SLOTS, 5120, 13824, "silu"),    # w1 + fused silu
-              (SLOTS, 5120, 13824, None),      # w3
-              (SLOTS, 13824, 5120, None),      # w2
-              (SLOTS, 5120, 152064, None),     # lm_head
-              (16, 5120, 5120, None),          # a prefill chunk
-              (SLOTS, 2048, 2048, None),       # moe q, k, v, o
-              (SLOTS, 2048, 2816, None),       # moe shared w1, w3
-              (SLOTS, 2816, 2048, None),       # moe shared w2
-              (SLOTS, 2048, 102400, None)]     # moe lm_head
     qa = 7 if packed else 127
-    label = "fxp_gemm_fused packed FxP4" if packed else "fxp_gemm_fused"
+    label = label or ("fxp_gemm_fused packed FxP4" if packed
+                      else "fxp_gemm_fused")
     rows = []
     for m, k, n, af in shapes:
         x = torch.randint(-qa, qa + 1, (m, k), generator=gen, device=dev,
@@ -639,7 +686,7 @@ def packed_batched_gemm_phase(dev, gen):
 
 
 def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5, *,
-                           mb=None, holes=(), empty=()):
+                           hd=128, mb=None, holes=(), empty=()):
     """Pools, tables and metadata for SLOTS rows holding `lengths` cached
     tokens each (the query at that position, valid length one more), in
     blocks shuffled over the pool, tables ending in sentinel entries (`mb`
@@ -652,7 +699,7 @@ def paged_attention_inputs(dev, gen, quant: bool, lengths, kvh=8, g=5, *,
     the whole table of an empty window), and for the operation count
     `scored`, the positions of the windows, and `weighed`, the positions
     AV weighs (an empty window's: the whole table)."""
-    hd, bs = 128, 16
+    bs = 16
     need = [-(-(n + 1) // bs) for n in lengths]
     mb = mb or max(need) + 2
     nb = sum(need) + 8
@@ -763,20 +810,25 @@ def attention_phase(dev, gen):
     int8 pool with the CORDIC softmax at Qwen2.5-14B's g 5 (4 rows x 8 KV
     heads x hd 128) over every case of ATTN_CASES, on the bf16 pool with
     the exact softmax and at DeepSeekMoE-16B's g 1 (16 KV heads) at
-    1024-2000 tokens; each line names the cluster size the wrapper
-    picked. Also times scaled_dot_product_attention on the 1024-2000
-    rows, gathered and dequantized beforehand, as a yardstick that does
-    less work (no paged gather, no dequant, no mask)."""
+    1024-2000 tokens, and at Zamba2-1.2B's shared attention (plain
+    multi-head, g 1, 32 KV heads of hd 64, int8 pool, CORDIC softmax) at
+    the serve width and 1024-2000 tokens; each line names the cluster
+    size the wrapper picked. Also times scaled_dot_product_attention on
+    the 1024-2000 rows, gathered and dequantized beforehand, as a
+    yardstick that does less work (no paged gather, no dequant, no
+    mask). -> (the first row, Zamba2's rows)."""
     from repro_torch.core.activation import softmax_lv_stages
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.paged_attention import (
         gather_pool_view, paged_attention_float, paged_attention_float_plain)
-    result = None
-    runs = [(True, name, 8, 5) for name in ATTN_CASES]
-    runs.insert(1, (False, "1024-2000 tokens", 8, 5))
-    runs.insert(2, (True, "1024-2000 tokens", 16, 1))
-    for quant, case, kvh, g in runs:
-        t = paged_attention_inputs(dev, gen, quant, kvh=kvh, g=g,
+    result, zamba2 = None, []
+    runs = [(True, name, 8, 5, 128) for name in ATTN_CASES]
+    runs.insert(1, (False, "1024-2000 tokens", 8, 5, 128))
+    runs.insert(2, (True, "1024-2000 tokens", 16, 1, 128))
+    runs += [(True, name, 32, 1, 64) for name in ("serve width",
+                                                  "1024-2000 tokens")]
+    for quant, case, kvh, g, hd in runs:
+        t = paged_attention_inputs(dev, gen, quant, kvh=kvh, g=g, hd=hd,
                                    **ATTN_CASES[case])
         q, k, v, tables, meta = (t[n] for n in ("q", "k", "v", "tables",
                                                 "meta"))
@@ -811,6 +863,12 @@ def attention_phase(dev, gen):
               f" {ms:.4f} ms (plain {pms:.4f} ms, bound {bms:.4f} ms by "
               f"{by}, {100 * bms / ms:.1f}% of bound), max|err| {err} (tol "
               f"{tol:.4g}), two calls bit-identical", flush=True)
+        if hd == 64:
+            zamba2.append(dict(case=case, ms=ms, plain_ms=pms, bound_ms=bms,
+                               bound_by=by, max_abs_err=err, cluster=c,
+                               shape=f"B={b} KV={kvh} g={g} hd={hd} bs="
+                                     f"{k.shape[1]} MB={tables.shape[1]}",
+                               **win))
         if result is None:
             result = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                           max_abs_err=err, cluster=c, **win)
@@ -829,7 +887,7 @@ def attention_phase(dev, gen):
                   f"the kernel's {ms:.4f} ms (less work: no paged gather, "
                   "no dequant, no mask, exact softmax)", flush=True)
             del kd, vd
-    return result
+    return result, zamba2
 
 
 # f32 operations per cached position and query head of the integer
@@ -904,10 +962,10 @@ CORDIC_SNAP_OPS = 2 * (1 + 1 + 1 + 2 + 2 + 1)
 def op_ms(fn, iters: int, record: str):
     """(device ms per call of every record, records per call, device ms
     per call of the kernel `record`, window) of `fn()`, one profiler
-    window (taken again, up to three times, while it holds fewer than
+    window (taken again, up to WINDOW_TRIES times, while it holds fewer than
     `iters` kernel records; then both times are the CUDA-event time)."""
     fn()
-    for _ in range(3):
+    for _ in range(WINDOW_TRIES):
         rec = profile_window(fn, iters)
         held, kernel_ms = matching(rec, record)
         n_all, all_ms = matching(rec, None)
@@ -982,6 +1040,49 @@ def cordic_af_phase(dev, gen):
         raw_plain = timed(lambda: cordic_af_plain(xf, "silu", 4, 5), 3)
         print(f"kernel cordic_af silu f32, no precision, {list(shape)}: "
               f"{raw:.4f} ms (plain AF {raw_plain:.4f} ms), bit-equal",
+              flush=True)
+    return rows
+
+
+def cordic_gate_phase(dev, gen):
+    """The CORDIC AF op at the SSM gate (`ssm._gated_norm`: SiLU on bf16
+    under FxP8), one launch a call: Mamba2-370M's [4, 1, 2048] at decode
+    and [1, 16, 2048] per prefill chunk, Zamba2-1.2B's [4, 1, 4096] and
+    [1, 16, 4096]; bit-equal to the plain op, timed by all of its device
+    records and by its kernel record. -> the rows."""
+    from repro_torch.kernels.cordic_af.cordic_af import (
+        cordic_af, cordic_af_reference)
+    rows = []
+    for shape in ((SLOTS, 1, 2048), (1, 16, 2048), (SLOTS, 1, 4096),
+                  (1, 16, 4096)):
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        before = cordic_af.launches
+        got = cordic_af(x, "silu", precision="fxp8")
+        if cordic_af.launches != before + 1:
+            fail(f"cordic_af gate {list(shape)}: "
+                 f"{cordic_af.launches - before} launches for one call")
+        ref = cordic_af_reference(x, "silu", precision="fxp8")
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"cordic_af gate silu bf16 fxp8 {list(shape)}: max |err| "
+                 f"{(got.float() - ref.float()).abs().max().item()}, not "
+                 "bit-equal to the plain op")
+        ms, recs, kms, win = op_ms(
+            lambda: cordic_af(x, "silu", precision="fxp8"), 20,
+            "cordic_af_kernel")
+        pms = timed(lambda: cordic_af_reference(x, "silu", precision="fxp8"),
+                    3)
+        n = x.numel()
+        bms, by = bound_ms(4.0 * n, (CORDIC_SILU_OPS + CORDIC_SNAP_OPS) * n,
+                           F32_OPS_PER_S)
+        rows.append(dict(shape=shape, precision="fxp8", ms=kms, op_ms=ms,
+                         records=recs, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, max_abs_err=0.0, **win))
+        print(f"kernel cordic_af silu bf16 fxp8 SSM gate {list(shape)}: op "
+              f"{ms:.4f} ms in {recs} records a call, kernel record "
+              f"{kms:.4f} ms (plain op {pms:.4f} ms, bound {bms:.6f} ms by "
+              f"{by}, {100 * bms / kms:.1f}% of bound), bit-equal",
               flush=True)
     return rows
 
@@ -1069,7 +1170,8 @@ def policy(name: str, backend: str):
 PATHS = (("qwen2_5_14b", "fxp8"), ("deepseek_moe_16b", "fxp8"),
          ("qwen2_5_14b", "edge4"), ("qwen2_5_14b", "int-attention"),
          ("deepseek_moe_16b", "edge4"), ("qwen2_5_14b", "fleet"),
-         ("qwen2_5_14b", "fxp32"))
+         ("qwen2_5_14b", "fxp32"), ("mamba2_370m", "fxp8"),
+         ("zamba2_1p2b", "fxp8"))
 
 
 def check_phase(dev, arch, policy_name):
@@ -1184,7 +1286,17 @@ def launches_per_decode_step(cfg, pol) -> dict:
     the FFN's GEMMs (w1/w3/w2, or the three expert banks and the three
     shared-expert GEMMs of a MoE block, whose expert and shared
     activations and router softmax are one CORDIC launch each); one
-    lm_head GEMM."""
+    lm_head GEMM. A Mamba2 layer makes its in_proj and out_proj GEMMs
+    and one CORDIC AF (the SiLU gate); the hybrid's shared block, after
+    each group of attn_every layers, its in_proj, q/k/v/o, w1 + GELU and
+    w2 GEMMs and one float attention."""
+    if cfg.family in ("ssm", "hybrid"):
+        apps = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                else 0)
+        return {"fxp_gemm_fused": 2 * cfg.n_layers + 7 * apps + 1,
+                "paged_attention_float": apps,
+                "cordic_af": cfg.n_layers, "cordic_softmax": 0,
+                "paged_attention_int": 0}
     moe = cfg.family == "moe"
     int_attn = pol.int_attention and pol.attn_softmax != "cordic"
     return {"fxp_gemm_fused": cfg.n_layers * (4 + (6 if moe else 3)) + 1,
@@ -1229,7 +1341,68 @@ def build_path(dev, cfg, policy_name, **kw):
     return engine, [("", engine.ex, pol)]
 
 
-def serve_phase(dev, arch, policy_name):
+class _KernelNodeParams(ctypes.Structure):
+    """`CUDA_KERNEL_NODE_PARAMS_v2` of cuda.h (libcuda)."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x",
+                                     "block_y", "block_z", "shared_bytes")
+    ] + [("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+         ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernel_counts(cfg, ex, pol) -> tuple:
+    """Launches of each kernel of the serving path (KERNELS' order) in one
+    decode step over executor `ex`'s cache, counted as the kernel nodes of
+    a CUDA graph that captured it, by their functions' names (libcuda's
+    cuGraphKernelNodeGetParams_v2 and cuFuncGetName). Capture runs
+    nothing, so the cache is not written."""
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.models import model as M
+    tokens = torch.zeros((ex.max_slots, 1), dtype=torch.long,
+                         device=ex.device)
+    n_valid = torch.ones((ex.max_slots,), dtype=torch.int32,
+                         device=ex.device)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        M.decode_step(cfg, ex.params, ex.cache, tokens, policy=pol,
+                      n_valid=n_valid, last_only=True)
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    nodes = None
+    for _ in range(2):
+        if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+            fail("cuGraphGetNodes failed on a captured decode step")
+        nodes = nodes or (ctypes.c_void_p * n.value)()
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                       # not a kernel node
+            continue
+        p = _KernelNodeParams()
+        name = ctypes.c_char_p()
+        if (cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                             ctypes.byref(p)) != 0
+                or (cu.cuFuncGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(p.func)) if p.func else
+                    cu.cuKernelGetName(ctypes.byref(name),
+                                       ctypes.c_void_p(p.kern))) != 0):
+            fail("could not name a kernel node of a captured decode step")
+        names.append(name.value.decode())
+    del graph
+    counts = []
+    for k in KERNELS:
+        rec = RECORDS[k]
+        rec = (rec,) if isinstance(rec, str) else rec
+        counts.append(sum(any(r in nm for r in rec) for nm in names))
+    return tuple(counts)
+
+
+def serve_phase(dev, arch, policy_name, after=None):
+    """Serve the full-width path; `after(cfg, engine)` runs once its own
+    checks have passed, while the engine and its weights are alive."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (KERNELS, gemm_mode_counts,
                                           launch_counts, make_requests,
@@ -1399,6 +1572,9 @@ def serve_phase(dev, arch, policy_name):
             done.append(dict(wall_ms=wall_ms, counted=counted, records=rec,
                              kern=kern, step=(len(calls) - 1,
                                               len(spans[name])),
+                             gemm_us=[round(e.time_range.elapsed_us(), 1)
+                                      for e in prof.events()
+                                      if "fxp_gemm" in e.name],
                              ok=tuple(c for c, _ in kern.values())
                              == counted))
             return out
@@ -1420,13 +1596,34 @@ def serve_phase(dev, arch, policy_name):
             if not t["ok"]:
                 print(f"traced decode step of {label} {name} (rerun step "
                       f"{t['step'][0]}): the profiler holds kernel records "
-                      f"{ {k: c for k, (c, _) in t['kern'].items()} }, the "
+                      f"{ {k: c for k, (c, _) in t['kern'].items()} } (the "
+                      f"GEMM's device us in order {t['gemm_us']}), the "
                       f"counters say {t['counted']}; tracing the next step",
                       flush=True)
-        if not tries or not tries[-1]["ok"]:
-            fail(f"traced decode step of {label} {name}: no traced step's "
-                 f"kernel records match the counters in {TRACE_TRIES} steps")
-        trace = tries[-1]
+        trace = tries[-1] if tries else None
+        if trace is None:
+            fail(f"serve {label} {name}: no decode step traced")
+        graph = None
+        if not trace["ok"]:
+            # the profiler lost records of every traced step: count the
+            # step's launches as kernel nodes of a captured CUDA graph
+            ex, pol = next((e, p) for n, e, p in replicas if n == name)
+            graph = graph_kernel_counts(cfg, ex, pol)
+            want_step = tuple(expect[name][k] for k in path)
+            if graph != trace["counted"] or graph != want_step:
+                fail(f"traced decode step of {label} {name}: the profiler's "
+                     f"records disagree with the counters {trace['counted']} "
+                     f"in {TRACE_TRIES} steps, and a captured step holds "
+                     f"kernel nodes {graph}, the model needs {want_step}")
+            lost = {k: trace["counted"][i] - trace["kern"][k][0]
+                    for i, k in enumerate(path)
+                    if trace["counted"][i] != trace["kern"][k][0]}
+            print(f"traced decode step of {label} {name}: the profiler lost "
+                  f"records {lost} of every traced step; a decode step "
+                  f"captured in a CUDA graph holds kernel nodes "
+                  f"{dict(zip(path, graph))}, the counters' and the model's "
+                  "count; the device ms below miss the lost records",
+                  flush=True)
         rec, kern = trace["records"], trace["kern"]
         n_all, all_ms = matching(rec, None)
         kern_ms = sum(ms for _, ms in kern.values())
@@ -1447,11 +1644,12 @@ def serve_phase(dev, arch, policy_name):
               flush=True)
         traced[name or "engine"] = dict(
             wall_ms=trace["wall_ms"], device_ms=all_ms, idle_share=idle,
-            records=n_all, kernels={k: dict(launches=c, ms=ms)
+            records=n_all, graph_kernel_nodes=graph, kernels={k: dict(launches=c, ms=ms)
                                     for k, (c, ms) in kern.items()})
     if len(traces) != len(replicas):
         fail(f"serve {label}: traced {sorted(traces)} of the replicas")
-    return launches, dict(
+    extra = after(cfg, engine) if after is not None else None
+    return launches, extra, dict(
         arch=arch, policy=policy_name, layers=cfg.n_layers, setup_s=setup_s,
         gib_on_card=torch.cuda.memory_allocated() / gib,
         setup_peak_gib=setup_peak, serve_peak_gib=serve_peak,
@@ -1464,6 +1662,116 @@ def serve_phase(dev, arch, policy_name):
         launches_per_decode_step={name or "engine": v
                                   for name, v in per_step.items()},
         traced_step=traced)
+
+
+PREFIX_TOKENS = 48             # the prefix phase's system prompt: 3 blocks
+PREFIX_WAVES = (24, 24, 24, 24, 8, 13, 19, 24)   # tails, in admission order
+
+
+def prefix_phase(dev, cfg, engine):
+    """Prefix caching on the full-width path `engine` serves (its weights
+    and policy reused): 8 greedy requests of 16 tokens sharing a 48-token
+    system prompt (three blocks of 16), with tails of 8-24 tokens of their
+    own, paged int8 KV (block 16), 4 slots, prefill chunk 16. Run cold
+    (paged, no prefix cache, overlap loop), then with the prefix cache
+    under the sync and the overlap loops: the same tokens in all three,
+    prompt tokens reused, fewer prompt tokens computed than admitted.
+
+    Under FxP8 the activation scale of a decode step is one per tensor
+    over every slot, so a request's tokens depend on which requests share
+    its decode steps, and prefix caching moves when a request starts to
+    decode (it skips the matched prefill chunks). The gated traffic is
+    two waves that keep each decode step's rows the same with and without
+    the cache: four requests with equal tails (they prefill, decode and
+    finish together, and fill the cache), then four with mixed tails,
+    admitted together once the first wave has left. The same 8 requests
+    in one mixed stream (tails drawn from 8-24) are also run cold and
+    warm; how many requests' tokens differ there is reported, not gated.
+    -> the figures of every run."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import Request, ServingEngine
+    gen_tokens = 16
+
+    def requests(tails, seed):
+        g = torch.Generator().manual_seed(seed)
+        system = torch.randint(0, cfg.vocab, (PREFIX_TOKENS,),
+                               generator=g).tolist()
+        return [Request(prompt=system + torch.randint(
+            0, cfg.vocab, (n,), generator=g).tolist(),
+            max_new_tokens=gen_tokens, id=i) for i, n in enumerate(tails)]
+
+    def run(reqs, prefix_cache, overlap):
+        eng = ServingEngine(cfg, engine.params, policy=engine.policy, seed=0,
+                            device=dev, max_slots=SLOTS,
+                            max_len=PREFIX_TOKENS + 24 + gen_tokens,
+                            prefill_chunk=16, kv_block_size=16,
+                            prefix_cache=prefix_cache, overlap=overlap)
+        calls = {"prefill": 0, "decode_and_sample": 0}
+        for attr in calls:
+            def counted(*a, _fn=getattr(eng.ex, attr), _attr=attr, **kw):
+                calls[_attr] += 1
+                return _fn(*a, **kw)
+            setattr(eng.ex, attr, counted)
+        finished, dt = serve(eng, reqs)
+        eng.check_invariants()
+        st = eng.stats()
+        if len(finished) != len(reqs) or any(
+                len(o.tokens) != gen_tokens for o in finished):
+            fail(f"prefix phase: {len(finished)} of {len(reqs)} requests "
+                 "finished with their tokens")
+        late = [o.ttft_s for o in finished if o.id >= SLOTS]
+        return [o.tokens for o in finished], dict(
+            seconds=dt, ticks=st["ticks"], prefill_chunks=calls["prefill"],
+            decode_steps=calls["decode_and_sample"],
+            prompt_tokens=st["prompt_tokens"],
+            prefill_tokens_computed=st["prefill_tokens_computed"],
+            prefix_tokens_reused=st["prefix_tokens_reused"],
+            block_hits=st.get("prefix_cache", {}).get("hits", 0),
+            cow_copies=st.get("cow_copies", 0),
+            generated_tok_s=st["generated_tokens"] / dt,
+            second_wave_ttft_s=statistics.mean(late))
+
+    waves = {}
+    toks = {}
+    for name, cache, overlap in (("cold", False, True),
+                                 ("warm sync", True, False),
+                                 ("warm overlap", True, True)):
+        toks[name], waves[name] = run(requests(PREFIX_WAVES, 1), cache,
+                                      overlap)
+        print(f"prefix phase, two waves, {name}: {waves[name]}", flush=True)
+    if not toks["cold"] == toks["warm sync"] == toks["warm overlap"]:
+        fail("prefix phase: the prefix-cached runs' tokens differ from the "
+             "cold run's")
+    for name in ("warm sync", "warm overlap"):
+        w = waves[name]
+        if not (w["prefix_tokens_reused"] > 0
+                and w["prefill_tokens_computed"] < w["prompt_tokens"]):
+            fail(f"prefix phase {name}: reused {w['prefix_tokens_reused']} "
+                 f"prompt tokens, computed {w['prefill_tokens_computed']} of "
+                 f"{w['prompt_tokens']}")
+    g = torch.Generator().manual_seed(2)
+    tails = torch.randint(8, 25, (8,), generator=g).tolist()
+    mixed, mixed_toks = {}, {}
+    for name, cache in (("cold", False), ("warm overlap", True)):
+        mixed_toks[name], mixed[name] = run(requests(tails, 3), cache, True)
+    differ = sum(a != b for a, b in zip(mixed_toks["cold"],
+                                        mixed_toks["warm overlap"]))
+    if mixed["warm overlap"]["prefix_tokens_reused"] == 0:
+        fail("prefix phase, one mixed stream: no prompt tokens reused")
+    print(f"prefix phase, two waves: cold == warm sync == warm overlap, "
+          f"{sum(map(len, toks['cold']))} greedy tokens; reused "
+          f"{waves['warm overlap']['prefix_tokens_reused']} of "
+          f"{waves['warm overlap']['prompt_tokens']} prompt tokens, "
+          f"{waves['warm overlap']['block_hits']} block hits, "
+          f"{waves['warm overlap']['cow_copies']} CoW forks, prefill chunks "
+          f"{waves['cold']['prefill_chunks']} -> "
+          f"{waves['warm overlap']['prefill_chunks']}; one mixed stream "
+          f"(tails {tails}): {differ} of 8 requests' tokens differ cold vs "
+          f"warm (not gated), reused "
+          f"{mixed['warm overlap']['prefix_tokens_reused']}", flush=True)
+    return dict(arch=cfg.name, system_prompt=PREFIX_TOKENS,
+                wave_tails=list(PREFIX_WAVES), waves=waves, mixed_tails=tails,
+                mixed=mixed, mixed_requests_differing=differ)
 
 
 def kernel_entry(name, source, replaces, row, launches, path=None,
@@ -1523,11 +1831,17 @@ def main():
                              packed=True)
     code_rows = code_gemm_phase(dev, torch.Generator(device=dev).manual_seed(6))
     bank = batched_gemm_phase(dev, torch.Generator(device=dev).manual_seed(2))
-    attn = attention_phase(dev, torch.Generator(device=dev).manual_seed(1))
+    attn, mha_rows = attention_phase(
+        dev, torch.Generator(device=dev).manual_seed(1))
     attn_int = attention_int_phase(
         dev, torch.Generator(device=dev).manual_seed(7))
+    ssm_gemm_rows = gemm_phase(
+        dev, torch.Generator(device=dev).manual_seed(11),
+        shapes=SSM_GEMM_SHAPES, label="fxp_gemm_fused (SSM/hybrid paths)")
     empty_ms = empty_launch_ms()
     af_rows = cordic_af_phase(dev, torch.Generator(device=dev).manual_seed(3))
+    gate_rows = cordic_gate_phase(
+        dev, torch.Generator(device=dev).manual_seed(12))
     sm_rows = cordic_softmax_phase(
         dev, torch.Generator(device=dev).manual_seed(4))
     check_quantize_phase(dev)
@@ -1535,10 +1849,14 @@ def main():
         if policy_name != "fleet":
             check_phase(dev, arch, policy_name)
     check_fleet_phase(dev)
-    launches, summaries = {}, []
+    launches, summaries, prefix = {}, [], None
     for arch, policy_name in PATHS:
         key = f"{arch}/{policy_name}"
-        launches[key], summary = serve_phase(dev, arch, policy_name)
+        after = (functools.partial(prefix_phase, dev)
+                 if (arch, policy_name) == ("qwen2_5_14b", "fxp8") else None)
+        launches[key], extra, summary = serve_phase(dev, arch, policy_name,
+                                                    after)
+        prefix = extra if extra is not None else prefix
         summaries.append(summary)
         gc.collect()                 # the engine and its weights go here
         torch.cuda.empty_cache()
@@ -1556,7 +1874,8 @@ def main():
                      launches, "qwen2_5_14b/fxp8",
                      counter="fxp_gemm_fused:int8", call_ms=w1["call_ms"],
                      shape=f"M={w1['m']} K={w1['k']} N={w1['n']} +silu "
-                           "(Qwen2.5-14B w1), int8 codes"),
+                           "(Qwen2.5-14B w1), int8 codes",
+                     ssm_hybrid_shapes=ssm_gemm_rows),
         kernel_entry("fxp_gemm_fused_batched", gemm_src, f"{gemm_ref}:158",
                      bank, launches, "deepseek_moe_16b/fxp8",
                      counter="fxp_gemm_fused:batched",
@@ -1595,7 +1914,8 @@ def main():
                      attn, launches, "deepseek_moe_16b/fxp8",
                      cluster=attn["cluster"],
                      shape="B=4 KV=8 g=5 hd=128 bs=16, 1024-2000 cached "
-                           "tokens, int8 pool, CORDIC softmax"),
+                           "tokens, int8 pool, CORDIC softmax",
+                     zamba2_shapes=mha_rows),
         kernel_entry("paged_attention_int", attn_src, f"{attn_ref}:208",
                      attn_int, launches, "qwen2_5_14b/int-attention",
                      cluster=attn_int["cluster"],
@@ -1607,7 +1927,8 @@ def main():
                      op_ms=af_rows[0]["op_ms"],
                      shape="silu bf16 fxp8 [1, 64, 4, 1408] (expert "
                            "activations at decode), the whole op in one "
-                           "launch"),
+                           "launch",
+                     gate_shapes=gate_rows),
         kernel_entry("cordic_softmax", "src/repro_torch/csrc/cordic_softmax.cu",
                      "src/repro/kernels/cordic_softmax/cordic_softmax.py:33",
                      sm_rows[0], launches, "deepseek_moe_16b/fxp8",
@@ -1634,6 +1955,7 @@ def main():
         flush=True)
     for summary in summaries:
         print(f"serve summary: {json.dumps(summary)}", flush=True)
+    print(f"prefix summary: {json.dumps(prefix)}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

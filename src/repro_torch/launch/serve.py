@@ -5,6 +5,13 @@
         --prompt-len 64 --mixed --gen 16
 
 `--arch deepseek_moe_16b` serves the MoE family the same way,
+`--arch mamba2_370m` the SSM family (Mamba2 layers, a recurrent state per
+slot, no KV cache) and `--arch zamba2_1p2b` the hybrid family (Mamba2
+layers with a shared attention block, its KV paged or contiguous);
+`--prefix-cache` (paged KV only) shares the KV of common prompt prefixes
+across requests with copy-on-write, and `--shared-prefix N` prepends a
+common N-token system prompt to every request (a no-op on the SSM and
+hybrid families, whose recurrent state cannot start mid-prompt).
 `--policy edge4` serves FxP4 (packed-nibble weights, FxP4 activations),
 and `--policy flexpe-fxp32` (or `flexpe-fxp24`) the PE's FxP32 mode
 (int32 codes, every GEMM on the fused GEMM's x32 mode).
@@ -71,16 +78,20 @@ def reset_launch_counts():
 
 
 def make_requests(cfg, n, prompt_len, gen, mixed=False, temp=0.0, top_k=0,
-                  seed=0, tier=None, priority=0):
+                  seed=0, shared_prefix=0, tier=None, priority=0):
     """n requests of random prompts from `seed`; `mixed` varies prompt
-    lengths over [plen/2, plen] as the reference launcher does; `tier`
-    pins each to a precision tier, `priority` stamps its SLO class."""
+    lengths over [plen/2, plen] as the reference launcher does;
+    `shared_prefix` prepends a common system prompt of that many tokens
+    to every request (the prefix-cache workload); `tier` pins each to a
+    precision tier, `priority` stamps its SLO class."""
     rng = np.random.default_rng(seed + 1)
+    system = np.random.default_rng(seed + 1000).integers(
+        0, cfg.vocab, size=shared_prefix).tolist()
     reqs = []
     for i in range(n):
         plen = (max(1, prompt_len - (i % 4) * (prompt_len // 8))
                 if mixed else prompt_len)
-        prompt = rng.integers(0, cfg.vocab, size=plen).tolist()
+        prompt = system + rng.integers(0, cfg.vocab, size=plen).tolist()
         reqs.append(Request(prompt=prompt, max_new_tokens=gen,
                             sampling=SamplingParams(temperature=temp,
                                                     top_k=top_k),
@@ -142,6 +153,13 @@ def main(argv=None):
     ap.add_argument("--scheduler", default="fifo", choices=list(POLICIES))
     ap.add_argument("--kv-block-size", type=int, default=0)
     ap.add_argument("--kv-blocks", type=int, default=0)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix caching over the paged "
+                         "pool (copy-on-write block sharing; requires "
+                         "--kv-block-size)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a common system prompt of N tokens to "
+                         "every request (prefix-cache workload)")
     ap.add_argument("--policy", default="flexpe-fxp8")
     ap.add_argument("--backend", default="kernels", choices=list(BACKENDS))
     ap.add_argument("--temp", type=float, default=0.0)
@@ -176,10 +194,12 @@ def main(argv=None):
         cfg = cfg.reduced()
     device = resolve_device(args.device)
     tiers = [t for t in args.tiers.split(",") if t]
-    common = dict(max_slots=args.slots, max_len=args.prompt_len + args.gen,
+    common = dict(max_slots=args.slots,
+                  max_len=args.prompt_len + args.shared_prefix + args.gen,
                   prefill_chunk=args.prefill_chunk,
                   kv_block_size=args.kv_block_size or None,
-                  kv_blocks=args.kv_blocks or None, scheduler=args.scheduler,
+                  kv_blocks=args.kv_blocks or None,
+                  prefix_cache=args.prefix_cache, scheduler=args.scheduler,
                   overlap=args.overlap)
     if tiers:
         engine = build_fleet(cfg, tiers, backend=args.backend,
@@ -208,7 +228,8 @@ def main(argv=None):
                                    device=device, **common)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen,
                          mixed=args.mixed, temp=args.temp, top_k=args.top_k,
-                         seed=args.seed, tier=args.pin_tier,
+                         seed=args.seed, shared_prefix=args.shared_prefix,
+                         tier=args.pin_tier,
                          priority=args.priority)
     before, modes_before = launch_counts(), gemm_mode_counts()
     finished, dt = serve(engine, reqs)
@@ -247,6 +268,12 @@ def main(argv=None):
     if engine.paged:
         print(f"paged KV: {st['kv_blocks']} blocks x {st['kv_block_size']} "
               f"tokens, peak in use {st['peak_blocks_used']}")
+    if "prefix_cache" in st:
+        pc = st["prefix_cache"]
+        print(f"prefix cache: {st['prefix_tokens_reused']} prompt tokens "
+              f"reused ({st['prefill_tokens_computed']} computed), "
+              f"{pc['hits']} block hits, {pc['evictions']} evictions, "
+              f"{st['cow_copies']} CoW forks")
     return finished
 
 

@@ -15,6 +15,7 @@ old cache keep their own copy.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -213,14 +214,17 @@ def ragged_cache_update(buf, new, start, count):
     return _apply_write(buf, plan, new)
 
 
-def init_kv_cache(cfg, batch, max_len, policy=None, dtype=torch.bfloat16,
-                  block_size=None, num_blocks=None, device=None):
-    """Pre-allocated per-layer KV cache, stacked on a leading layer axis.
+def init_kv_cache(cfg, batch, max_len, policy=None, n_layers=None,
+                  dtype=torch.bfloat16, block_size=None, num_blocks=None,
+                  device=None):
+    """Pre-allocated per-layer KV cache, stacked on a leading layer axis
+    of `n_layers` (default: the model's layers; the hybrid family keeps
+    one per shared-attention application).
 
     Contiguous (default): one [batch, max_len] window per row. Paged
     (`block_size` set): a global block pool [num_blocks, block_size];
     `num_blocks` defaults to byte parity with the contiguous layout."""
-    n_layers = cfg.n_layers
+    n_layers = n_layers if n_layers is not None else cfg.n_layers
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     quant = policy is not None and policy.kv_cache is not None
     dt = torch.int8 if quant else dtype
@@ -359,7 +363,9 @@ def mlp(p, x, act, policy=None):
                         af=act if act in ("gelu", "relu", "tanh",
                                           "sigmoid") else "gelu")
         else:
-            h = {"gelu": torch.nn.functional.gelu,
+            # jax.nn.gelu's default is the tanh approximation
+            h = {"gelu": functools.partial(torch.nn.functional.gelu,
+                                           approximate="tanh"),
                  "relu": torch.relu, "tanh": torch.tanh,
                  "sigmoid": torch.sigmoid}[act](qmatmul(x, p["w1"], policy))
     return qmatmul(h, p["w2"], policy)

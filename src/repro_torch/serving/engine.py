@@ -23,6 +23,13 @@ Two loop modes, token-identical (both run the same dispatch sequence):
     release their slot at dispatch time; only EOS is seen one tick late
     (at most one discarded decode per EOS'd request, `wasted_decodes`).
 
+Prefix caching (`prefix_cache=True`, paged layout only) shares prompt KV
+across requests at block granularity: admission points a slot's table at
+the longest cached block-aligned prefix and starts its prefill there,
+and a slot that must append into a block it shares first copies it to a
+private block (copy-on-write). Families with a recurrent SSM state
+cannot enter a prompt mid-stream, so there the flag does nothing.
+
 Sampling with temperature draws from one `torch.Generator` per request,
 seeded from the request's seed or from (engine seed, request id). Greedy
 requests (temperature 0) are the cross-package parity contract.
@@ -41,6 +48,7 @@ from ..core.backend import resolve_device
 from ..core.precision import policy_tier
 from .api import FinishedRequest, Request, RequestOutput, SamplingParams
 from .executor import ModelExecutor, to_device
+from .prefix_cache import PrefixCache
 from .scheduler import Scheduler, SchedulingPolicy, SlotState
 
 __all__ = ["ServingEngine", "Request", "RequestOutput", "FinishedRequest",
@@ -85,12 +93,12 @@ class ServingEngine:
                  scheduler: Union[str, SchedulingPolicy] = "fifo",
                  overlap: bool = False, device=None):
         self.device = resolve_device(device)
-        if prefix_cache:
-            raise NotImplementedError("prefix caching is not ported yet "
-                                      "(ROADMAP.md queue 1, item 7)")
         if kv_blocks is not None and kv_block_size is None:
             raise ValueError("kv_blocks requires kv_block_size (a pool size "
                              "only makes sense for the paged layout)")
+        if prefix_cache and kv_block_size is None:
+            raise ValueError("prefix_cache requires kv_block_size (prefix "
+                             "sharing is a property of the paged layout)")
         self.cfg = cfg
         self.params = params_to(params, self.device)
         self.policy = policy
@@ -105,11 +113,14 @@ class ServingEngine:
                                 max_len=max_len, prefill_chunk=prefill_chunk,
                                 kv_block_size=kv_block_size,
                                 kv_blocks=kv_blocks)
+        prefix = (PrefixCache(kv_block_size)
+                  if prefix_cache and self.ex.paged and not self.ex.has_ssm
+                  else None)
         self.sched = Scheduler(
             max_slots, max_len, policy=scheduler,
             kv_block_size=kv_block_size if self.ex.paged else None,
             num_blocks=self.ex.num_blocks, paged=self.ex.paged,
-            has_ssm=False, prefix_cache=None, tier=self.tier)
+            has_ssm=self.ex.has_ssm, prefix_cache=prefix, tier=self.tier)
         self.tick = 0
         self._inflight: deque = deque()      # dispatched, not yet drained
         self._out_buffer: deque = deque()    # events awaiting a consumer
@@ -136,10 +147,10 @@ class ServingEngine:
 
     def prefix_peek(self, keys) -> int:
         """How many leading chain-keyed prompt blocks this engine's prefix
-        cache holds: 0, as the port has no prefix cache yet (the router's
-        affinity probe)."""
-        del keys
-        return 0
+        cache holds (0 without a cache): the router's affinity probe,
+        read-only (no LRU or hit-count change)."""
+        prefix = self.sched._prefix
+        return prefix.peek(keys) if prefix is not None else 0
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -239,6 +250,7 @@ class ServingEngine:
                 pf_temps.append(slot.request.sampling.temperature)
                 pf_topks.append(slot.request.sampling.top_k)
                 slot.scheduled += 1
+            sched.register_prefix_blocks(b)
 
         # 2) fused pool decode + sample for device-seeded frontier rows
         dec_items, dec_toks = [], None
@@ -382,4 +394,6 @@ class ServingEngine:
               "wasted_decodes": self.wasted_decodes,
               "aborted_requests": self.aborted_requests}
         st.update(self.sched.stats())
+        if self.ex.paged:
+            st["cow_copies"] = self.ex.cow_copies
         return st

@@ -1,7 +1,8 @@
 """ModelExecutor: the device-owning half of the serving engine.
 
 Owns the params and the slot-pool cache on the device, the coalesced host
-mirrors of the device control arrays (`lengths`, `block_tables`), and a
+mirrors of the device control arrays (`lengths`, `block_tables`, SSM
+reset rows), and a
 **device-resident sampled-token feedback buffer**: decode and sampling
 run as one step that writes each slot's sampled token straight back into
 the `[max_slots]` buffer the next decode tick reads its inputs from. The
@@ -80,6 +81,7 @@ class ModelExecutor:
                                   kv_block_size=kv_block_size,
                                   kv_blocks=kv_blocks, device=device)
         self.paged = "block_tables" in self.cache
+        self.has_ssm = "ssm" in self.cache
         self.num_blocks = (int(self.cache["kv"]["k"].shape[1])
                            if self.paged else 0)
         self._token_buf = torch.zeros((max_slots,), dtype=torch.int32,
@@ -93,6 +95,7 @@ class ModelExecutor:
             self._tables_host = np.full((max_slots, mb), self.num_blocks,
                                         np.int32)
             self._tables_dirty = False
+        self._ssm_reset_rows: List[int] = []
         self.h2d_updates = 0
         self.cow_copies = 0
 
@@ -111,8 +114,9 @@ class ModelExecutor:
         self._tables_dirty = True
 
     def reset_ssm_row(self, row: int):
-        raise NotImplementedError("SSM state is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7)")
+        """Queue `row`'s recurrent state (and conv window) for zeroing at
+        the next `flush`: a newly admitted request starts from zeros."""
+        self._ssm_reset_rows.append(row)
 
     def clear_table_entry(self, row: int, idx: int):
         self._tables_host[row, idx] = self.num_blocks
@@ -125,7 +129,15 @@ class ModelExecutor:
 
     def flush(self):
         """Upload this tick's admission / allocation mutations: at most
-        one host-to-device copy per control array per tick."""
+        one host-to-device copy per control array per tick (and one
+        zeroing of the SSM rows admitted since the last flush)."""
+        if self._ssm_reset_rows:
+            rows = to_device(np.asarray(sorted(set(self._ssm_reset_rows)),
+                                        np.int64), self.device)
+            for a in self.cache["ssm"]:
+                a.index_fill_(1, rows, 0)
+            self._ssm_reset_rows.clear()
+            self.h2d_updates += 1
         if self._lengths_dirty:
             self.cache["lengths"] = to_device(self._lengths_host.copy(),
                                               self.device)
@@ -180,3 +192,19 @@ class ModelExecutor:
         buf[idx] = toks
         self._token_buf = buf
         return toks
+
+    # -- recurrent-state rollback (speculative decoding) --------------------
+
+    def checkpoint_ssm(self):
+        """A copy of the recurrent SSM state and conv windows, taken ahead
+        of a speculative dispatch (the steps write the cache in place)."""
+        return tuple(a.clone() for a in self.cache["ssm"])
+
+    def restore_ssm_rows(self, rows: List[int], saved):
+        """Rewind `rows`' recurrent state to a `checkpoint_ssm` copy. A KV
+        window truncates by clamping its length, but a recurrent carry
+        has already folded the rejected positions in: the only rollback
+        is restore, then replay."""
+        r = to_device(np.asarray(sorted(rows), np.int64), self.device)
+        for a, s in zip(self.cache["ssm"], saved):
+            a.index_copy_(1, r, s.index_select(1, r))

@@ -13,12 +13,12 @@ Routing policy is pluggable:
     every candidate replica is saturated.
   * `prefix-affinity` — requests whose prompt shares a chain-hashed
     block prefix (the chain hash of `serving/prefix_cache.py`) steer to
-    the replica that holds or was last given those blocks (each
-    replica's `prefix_peek`, then a router-side sticky map), bounded by
-    `stickiness`: when the affinity replica's load runs more than
+    the replica that holds those blocks (each replica's `prefix_peek`, a
+    read-only probe of its prefix cache) or, for prefixes routed but not
+    yet cached, was last given them (a router-side sticky map), bounded
+    by `stickiness`: when the affinity replica's load runs more than
     `stickiness` requests ahead of the least-loaded one, the request
-    spills there and re-sticks. The port has no prefix cache yet, so
-    `prefix_peek` is 0 and only the sticky map steers.
+    spills there and re-sticks.
   * `tiered` — least-loaded placement within the precision-tier class
     picked per request (requires `tiers`).
 
@@ -530,7 +530,9 @@ class EngineRouter:
 
     def stats(self) -> dict:
         """Fleet totals plus `per_engine` and per-tier breakdowns
-        (`slot_utilization` weighted by each replica's slot-ticks)."""
+        (`slot_utilization` weighted by each replica's slot-ticks;
+        `prefix_hit_rate` the prompt tokens a replica served from its
+        prefix cache over the prompt tokens it processed)."""
         per = [e.stats() for e in self.engines]
         busy = sum(e.busy_slot_ticks for e in self.engines)
         total = sum(e.total_slot_ticks for e in self.engines)
@@ -546,6 +548,8 @@ class EngineRouter:
             "generated_tokens": sum(s["generated_tokens"] for s in per),
             "prefill_tokens_computed": sum(s["prefill_tokens_computed"]
                                            for s in per),
+            "prefix_tokens_reused": sum(s["prefix_tokens_reused"]
+                                        for s in per),
             "slot_utilization": busy / max(total, 1),
         }
         if isinstance(self.routing, PrefixAffinity):
@@ -570,6 +574,8 @@ class EngineRouter:
             "prompt_tokens": s["prompt_tokens"],
             "generated_tokens": s["generated_tokens"],
             "prefill_tokens_computed": s["prefill_tokens_computed"],
+            "prefix_hit_rate": (s["prefix_tokens_reused"]
+                                / max(s["prompt_tokens"], 1)),
             "dispatched": self.dispatched[i],
         } for i, s in enumerate(per)]
         return st

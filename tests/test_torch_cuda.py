@@ -171,13 +171,13 @@ def _layout_tables(mb, bs, seed=5):
     return torch.from_numpy(tables), torch.from_numpy(meta), nb
 
 
-def _pools(quant, mb, bs, g, kvh=2, seed=0):
+def _pools(quant, mb, bs, g, kvh=2, seed=0, hd=None):
     """bf16 q [5, kvh, g, hd] and pools over _layout_tables(mb, bs): int8
-    codes with per-position scales, or bf16 values; hd 128 at g 5 (the
-    paths' head) and 32 otherwise (rows narrower than a score lane's
-    chunks)."""
+    codes with per-position scales, or bf16 values; by default hd 128 at
+    g 5 (the paths' head) and 32 otherwise (rows narrower than a score
+    lane's chunks)."""
     tables, meta, nb = _layout_tables(mb, bs)
-    hd = 128 if g == 5 else 32
+    hd = hd or (128 if g == 5 else 32)
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.normal(size=(5, kvh, g, hd)).astype(np.float32))
     shape = (nb, bs, kvh, hd)
@@ -967,3 +967,141 @@ def test_model_step_kernels_bit_equal_to_plain_backend(cuda, name):
             assert not ran
     for a, b in zip(logits["kernels"], logits["reference"]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the SSM (Mamba2-370M) and hybrid (Zamba2-1.2B) paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 1, 2048), (1, 16, 2048),
+                                   (4, 1, 4096), (1, 16, 4096)])
+def test_ssm_gate_cordic_af_bit_equal(cuda, shape):
+    """The SSM gate (SiLU on bf16 under FxP8) at Mamba2's and Zamba2's
+    decode rows and prefill chunks: one launch, the plain op's bits."""
+    x = (torch.from_numpy(np.random.default_rng(sum(shape)).normal(
+        size=shape).astype(np.float32)) * 3).to(torch.bfloat16).to(cuda)
+    before = cordic_af.launches
+    got = cordic_af(x, "silu", precision="fxp8")
+    assert cordic_af.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, cordic_af_reference(x, "silu", precision="fxp8"))
+
+
+@pytest.mark.parametrize("m,k,n,af", [
+    (4, 1024, 4384, None), (16, 1024, 4384, None),    # mamba2 in_proj
+    (4, 2048, 8384, None), (4, 4096, 2048, None),     # zamba2 in/out_proj
+    (4, 2048, 8192, "gelu"), (16, 2048, 8192, "gelu"),  # shared w1 + GELU
+    (4, 2048, 32000, None)])                          # zamba2 lm_head
+def test_ssm_path_gemm_shapes_bit_equal(cuda, m, k, n, af):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    scale = torch.from_numpy((rng.random(n) * 1e-4).astype(np.float32))
+    x, w, scale = x.to(cuda), w.to(cuda), scale.to(cuda)
+    before = fxp_gemm_fused.launches
+    got = fxp_gemm_fused(x, w, scale, af=af)
+    assert fxp_gemm_fused.launches == before + 1
+    assert torch.equal(got, fxp_gemm_fused_plain(x, w, scale, af=af))
+
+
+@pytest.mark.parametrize("mb,bs", [(2, 16), (5, 8), (20, 16)])
+def test_paged_attention_mha_hd64_matches_plain(cuda, mb, bs):
+    """Zamba2's shared attention: plain multi-head (g 1), 32 KV heads of
+    hd 64, on the int8 pool with the CORDIC softmax, over the layouts of
+    _layout_tables: within 1% of the plain version."""
+    q, k, v, ks, vs, tables, meta = [
+        t.to(cuda) if t is not None else None
+        for t in _pools(True, mb, bs, 1, kvh=32, hd=64)]
+    kw = dict(k_scale=ks, v_scale=vs, cordic_softmax=True, hr_stages=4,
+              lv_stages=softmax_lv_stages(mb * bs, "fxp8"),
+              out_dtype=torch.bfloat16)
+    _check_attention(
+        paged_attention_float,
+        lambda: paged_attention_float(q, k, v, tables, meta, **kw),
+        lambda: paged_attention_float_plain(q, k, v, tables, meta, **kw))
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """`CUDA_KERNEL_NODE_PARAMS_v2` of cuda.h (libcuda)."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x",
+                                     "block_y", "block_z", "shared_bytes")
+    ] + [("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+         ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _graph_kernel_names(fn) -> list:
+    """The function names of the kernel nodes of a CUDA graph that
+    captured one call of `fn()`, read with libcuda's cuGraphGetNodes,
+    cuGraphKernelNodeGetParams_v2 and cuFuncGetName (cuKernelGetName for
+    a node that holds a library kernel handle)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        if kind.value != 0:                       # not a kernel node
+            continue
+        p = _KernelNodeParams()
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                ctypes.byref(p)) == 0
+        name = ctypes.c_char_p()
+        rc = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+              if p.func else
+              cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)))
+        assert rc == 0, rc
+        names.append(name.value.decode())
+    return names
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_1p2b"])
+def test_ssm_decode_step_launches_as_graph_kernel_nodes(cuda, arch):
+    """One decode step of reduced Mamba2 / Zamba2 under flexpe(8) on the
+    kernels backend, captured in a CUDA graph: its kernel nodes hold one
+    GEMM per in_proj and out_proj of every SSM layer, per in_proj, q, k,
+    v, o, w1 + GELU and w2 of each shared application and one lm_head,
+    one CORDIC AF per SSM layer and one float paged attention per shared
+    application, and nothing else of the port's; the wrappers' counters
+    say the same."""
+    from repro_torch.models import model as M
+    cfg = get_config(arch).reduced()
+    pol = PrecisionPolicy.flexpe(8, backend="kernels")
+    params = quantize_params(M.init_params(cfg, 0, device=cuda), "fxp8")
+    cache = M.init_cache(cfg, 4, 32, pol, kv_block_size=16, device=cuda)
+    if "block_tables" in cache:
+        cache["block_tables"][:, :2] = torch.arange(
+            8, device=cuda, dtype=torch.int32).reshape(4, 2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (4, 1), device=cuda, generator=gen)
+    n_valid = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=cuda)
+
+    def step():
+        return M.decode_step(cfg, params, cache, tokens, policy=pol,
+                             n_valid=n_valid, last_only=True)
+    step()                               # plans and buffers before capture
+    torch.cuda.synchronize()
+    counters = (fxp_gemm_fused, cordic_af, paged_attention_float,
+                cordic_softmax, paged_attention_int)
+    before = [c.launches for c in counters]
+    names = _graph_kernel_names(step)
+    counted = [c.launches - b for c, b in zip(counters, before)]
+    apps = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    want = [2 * cfg.n_layers + 7 * apps + 1, cfg.n_layers, apps, 0, 0]
+    assert counted == want
+    # the kernels' names as the profiler reports them, matched in the
+    # (mangled) function names; "paged_attention_kernel" is not a part of
+    # "paged_attention_int_kernel"
+    nodes = [sum(kernel in name for name in names)
+             for kernel in ("fxp_gemm_tc_kernel", "cordic_af_kernel",
+                            "paged_attention_kernel", "cordic_softmax_kernel",
+                            "paged_attention_int_kernel")]
+    assert nodes == want, (nodes, sorted(set(names))[:8])

@@ -226,9 +226,10 @@ def test_engine_needs_cuda_unless_asked_for_cpu(model):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(cfg, tparams, policy=TPolicy.flexpe(8))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    # prefix caching is a property of the paged layout
+    with pytest.raises(ValueError, match="prefix_cache requires"):
         ServingEngine(cfg, tparams, policy=TPolicy.flexpe(8), device="cpu",
-                      kv_block_size=4, prefix_cache=True)
+                      prefix_cache=True)
 
 
 # ---------------------------------------------------------------------------
