@@ -51,11 +51,17 @@ Phases, one line each, any failure exits non-zero before the last line:
                 reduced Zamba2-1.2B (FxP8),
                 each served through the kernels and through the plain path
                 on the card: the same greedy tokens; the reduced fleet of
-                an fxp8 and an fxp16 replica over one TieredWeights bank:
-                the same tiers and tokens on both paths, and with every
-                request pinned to one tier, the tokens of a single engine
-                of that tier over the same bank;
-  5. serve    — nine paths, each at full width from seed 0: Qwen2.5-14B
+                every rung (fxp4, fxp8, fxp16 and bf16 replicas over one
+                TieredWeights bank): the same tiers and tokens on both
+                paths (an fxp4 request may differ only where the kernels
+                with the attentions' plain versions in place give the
+                plain path's tokens exactly, `against_plain`), and with
+                every request pinned to one tier, the tokens of a single
+                engine of that tier over the same bank; the reduced
+                speculative fleet (`check_spec_phase`): the same tokens
+                and `spec_*` counters on both paths, and the tokens of a
+                plain fxp4+bf16 fleet over the same bank;
+  5. serve    — ten paths, each at full width from seed 0: Qwen2.5-14B
                 (48 layers) with FxP8 weights, DeepSeekMoE-16B (28 layers)
                 with FxP8 weights, Qwen2.5-14B under edge4 (packed FxP4
                 weights and activations), Qwen2.5-14B under integer
@@ -67,9 +73,13 @@ Phases, one line each, any failure exits non-zero before the last line:
                 (48 layers of int32 weights, every GEMM on the x32 mode,
                 its KV codes wrapped into the int8 pool as the
                 reference's are), Mamba2-370M (48 SSM layers, FxP8, a
-                recurrent state per slot and no KV) and Zamba2-1.2B (38
+                recurrent state per slot and no KV), Zamba2-1.2B (38
                 SSM layers and 6 applications of one shared attention +
-                GELU MLP block, FxP8); each with paged int8 KV (block
+                GELU MLP block, FxP8) and the speculative fleet of
+                Qwen2.5-14B (`spec_phase`: an fxp4 replica and a bf16
+                replica drafting on the bank's fxp4 view, k 4, beside a
+                plain fxp4+bf16 fleet over the same bank; its gates (b)
+                to (d) there); each with paged int8 KV (bf16 for bf16; block
                 16; none for Mamba2), 4 slots (per replica), 8 mixed
                 requests (prompts
                 40-64), 16 greedy tokens each, prefill chunk 16, overlap
@@ -93,6 +103,7 @@ line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -114,6 +125,11 @@ INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 SLOTS = 4
 FLEET = ("fxp8", "fxp16")      # the tiered fleet's replicas
+LADDER = ("fxp4", "fxp8", "fxp16", "bf16")      # every rung, reduced check
+SPEC_TIERS = ("fxp4", "bf16")  # the speculative fleet's replicas
+SPEC, SPEC_K = "fxp4:bf16", 4  # its draft:verify pair and draft depth
+SPEC_COUNTERS = ("spec_proposed", "spec_accepted", "spec_verify_steps",
+                 "spec_rolled_back")
 TRACE_TRIES = 3                # decode steps traced at most per replica
 WINDOW_TRIES = 5               # profiler windows taken at most per timing
 
@@ -373,6 +389,13 @@ def code_gemm_phase(dev, gen):
         lib_ms, lib_note = None, "none"
         if name == "fxp_gemm_codes":
             lib_ms, lib_note = library_int_mm(x, w, ref)
+        elif x.dtype == torch.int16:
+            # torch.matmul of the same codes already cast to f32 (TF32
+            # off), as beside the wide and x32 modes (a yardstick: its f32
+            # sums round past 2^24)
+            xf, wf = x.float(), w.float()
+            lib_ms = timed(lambda: torch.matmul(xf, wf), 20)
+            lib_note = f"torch.matmul on f32 codes {lib_ms:.4f} ms"
         print(f"kernel {name} ({what}) M={m} K={kk} N={n}: {ms:.4f} ms on "
               f"the device, {call_ms:.4f} ms of device records per wrapper "
               f"call (plain {pms:.4f} ms, bound {bms:.4f} ms by {by}, "
@@ -1165,13 +1188,13 @@ def policy(name: str, backend: str):
     return PrecisionPolicy.flexpe(int(name[3:]), backend=backend)
 
 
-#: the served paths: (architecture, policy, or "fleet" for the tiered
-#: fleet of FLEET's replicas)
+#: the served paths: (architecture, policy, "fleet" for the tiered fleet
+#: of FLEET's replicas, or "spec" for the speculative fleet, `spec_phase`)
 PATHS = (("qwen2_5_14b", "fxp8"), ("deepseek_moe_16b", "fxp8"),
          ("qwen2_5_14b", "edge4"), ("qwen2_5_14b", "int-attention"),
          ("deepseek_moe_16b", "edge4"), ("qwen2_5_14b", "fleet"),
          ("qwen2_5_14b", "fxp32"), ("mamba2_370m", "fxp8"),
-         ("zamba2_1p2b", "fxp8"))
+         ("zamba2_1p2b", "fxp8"), ("qwen2_5_14b", "spec"))
 
 
 def check_phase(dev, arch, policy_name):
@@ -1220,8 +1243,57 @@ def check_quantize_phase(dev):
           f"int32 cast of 2^31 on the card gives {cast}", flush=True)
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The kernels backend with the paged attentions' plain versions in
+    place of their kernels; every other kernel stays."""
+    from repro_torch.kernels import dispatch
+    key = ("paged_attention", "kernels")
+    kernel = dispatch._REGISTRY[key]
+    dispatch._REGISTRY[key] = dispatch.lookup("paged_attention", "reference")
+    try:
+        yield
+    finally:
+        dispatch._REGISTRY[key] = kernel
+
+
+def against_plain(label, run):
+    """`run(backend)` -> ([(tier, tokens)] of every request, anything else
+    to compare). The kernels must give the plain path's result. Only an
+    fxp4 request may differ, and then the kernels with the attentions'
+    plain versions in place (`plain_attention`) must give the plain
+    path's result exactly: every other kernel is bit-equal, the attention
+    kernel sums in another order (held within 1% in the kernels phase),
+    and FxP4's 16-step per-tensor grid can snap that into other codes.
+    -> {request index: first differing generated token}."""
+    got = {b: run(b) for b in ("kernels", "reference")}
+    if got["kernels"] == got["reference"]:
+        return {}
+    first = {}
+    for i, ((tier, a), (_, b)) in enumerate(zip(got["kernels"][0],
+                                                got["reference"][0])):
+        if a != b:
+            if tier != "fxp4":
+                fail(f"{label}: {tier} request {i}: kernels {a} != plain {b}")
+            first[i] = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    with plain_attention():
+        again = run("kernels")
+    if again != got["reference"]:
+        fail(f"{label}: kernels {got['kernels']} != plain "
+             f"{got['reference']}, also with the attentions' plain versions "
+             f"in place: {again}")
+    rest = ("equal" if got["kernels"][1:] == got["reference"][1:]
+            else "differ")
+    print(f"{label}: fxp4 requests {sorted(first)} differ between kernels "
+          f"and plain path from generated tokens {first} on (the other "
+          f"results {rest}); with the attentions' plain versions in place "
+          "the kernels give the plain path's result exactly", flush=True)
+    return first
+
+
 def check_fleet_phase(dev):
-    """The reduced fleet (an fxp8 and an fxp16 replica, tiered routing)
+    """The reduced fleet of every rung of the ladder (fxp4, fxp8, fxp16 and
+    bf16 replicas, tiered routing; 16 requests, so four land on each)
     through the kernels and through the plain path: the same tier stamped
     on every request and the same greedy tokens. Then the pin contract:
     with every request pinned to one tier, the fleet gives the tokens of
@@ -1236,23 +1308,26 @@ def check_fleet_phase(dev):
     kw = dict(max_slots=SLOTS, max_len=48, prefill_chunk=16,
               kv_block_size=16, overlap=True)
     got = {}
-    for backend in ("kernels", "reference"):
-        router = build_fleet(cfg, list(FLEET), backend=backend, seed=0,
+
+    def run(backend):
+        router = build_fleet(cfg, list(LADDER), backend=backend, seed=0,
                              device=dev, routing="tiered", **kw)
-        finished = serve_tokens(router, make_requests(cfg, 8, 32, 16,
+        finished = serve_tokens(router, make_requests(cfg, 16, 32, 16,
                                                       mixed=True, seed=0))[1]
-        got[backend] = [(o.tier, o.tokens) for o in finished]
-    if got["kernels"] != got["reference"]:
-        fail(f"reduced fleet {FLEET}: kernels {got['kernels']} != plain "
-             f"{got['reference']}")
-    placed = sorted({t for t, _ in got["kernels"]})
-    if placed != sorted(FLEET):
+        res = [(o.tier, o.tokens) for o in finished]
+        got.setdefault(backend, res)     # the first run of each backend
+        return (res,)
+    differ = against_plain(f"check reduced fleet {','.join(LADDER)}", run)
+    got = got["reference"]
+    placed = sorted({t for t, _ in got})
+    if placed != sorted(LADDER):
         fail(f"reduced fleet: requests placed on {placed} only")
-    bank = TieredWeights(M.init_params(cfg, 0, device=dev), FLEET,
+    bank = TieredWeights(M.init_params(cfg, 0, device=dev), LADDER,
                          consume=True)
-    for tier in FLEET:
-        router = EngineRouter(cfg, bank, tiers=list(FLEET), routing="tiered",
-                              backend="kernels", seed=0, device=dev, **kw)
+    for tier in LADDER:
+        router = EngineRouter(cfg, bank, tiers=list(LADDER),
+                              routing="tiered", backend="kernels", seed=0,
+                              device=dev, **kw)
         pinned = serve_tokens(router, make_requests(
             cfg, 8, 32, 16, mixed=True, seed=0, tier=tier))[1]
         single = ServingEngine(cfg, bank.for_tier(tier),
@@ -1264,10 +1339,151 @@ def check_fleet_phase(dev):
                 o.tier != tier for o in pinned):
             fail(f"reduced fleet pinned to {tier}: tokens or tiers differ "
                  "from a single engine of that tier over the same bank")
-    print(f"check reduced fleet {','.join(FLEET)}: kernels == plain path on "
-          f"the card ({sum(len(t) for _, t in got['kernels'])} greedy "
-          "tokens, the same tiers); pinned to each tier == a single engine "
-          "of that tier over the same bank", flush=True)
+    print(f"check reduced fleet {','.join(LADDER)}: kernels == plain path on "
+          f"the card ({sum(len(t) for _, t in got)} greedy tokens, the same "
+          f"tiers; {len(differ)} fxp4 requests only with the attentions' "
+          "plain versions); pinned to each tier == a single engine of that "
+          "tier over the same bank", flush=True)
+
+
+def spec_requests(cfg, prompt_len):
+    """The serve workload (8 mixed requests, 16 greedy tokens each), pinned
+    alternately to the speculative fleet's two tiers."""
+    from repro_torch.launch.serve import make_requests
+    reqs = make_requests(cfg, 8, prompt_len, 16, mixed=True, seed=0)
+    for i, r in enumerate(reqs):
+        r.tier = SPEC_TIERS[i % 2]
+    return reqs
+
+
+def drive_audited(router, reqs):
+    """Serve `reqs`, auditing every replica's block ledger (and each
+    coordinator's slot pairing) after every round; after the drain every
+    pool must hold all its blocks again. -> (finished outputs in id order,
+    seconds)."""
+    from repro_torch.serving import SpecDecodeCoordinator
+    t0 = time.perf_counter()
+    for r in reqs:
+        router.submit(r)
+    done = {}
+    while router.has_work():
+        for out in router.step():
+            if out.finished:
+                done[out.id] = out
+        router.check_invariants()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for eng in router.engines:
+        for side in ([eng.draft, eng.verify]
+                     if isinstance(eng, SpecDecodeCoordinator) else [eng]):
+            st = side.sched.stats()
+            if st["held_blocks"] or (st["free_blocks"] + st["cached_blocks"]
+                                     != st["kv_blocks"]):
+                fail(f"a {side.tier} engine's pool did not get its blocks "
+                     f"back after the drain: {st}")
+    return [done[i] for i in sorted(done)], dt
+
+
+def top2_margin(cfg, params, policy, prompt, prefix, dev):
+    """(top-1 minus top-2 logit, logit range) of the next token after
+    `prompt + prefix` under `policy`, prefilled in chunks of 16 into a
+    batch-1 cache: how near a tie that position is."""
+    from repro_torch.models import model as M
+    seq = list(prompt) + list(prefix)
+    cache = M.init_cache(cfg, 1, len(seq) + 16, policy, device=dev)
+    for s in range(0, len(seq), 16):
+        block = seq[s:s + 16]
+        tokens = torch.zeros((1, 16), dtype=torch.long, device=dev)
+        tokens[0, :len(block)] = torch.tensor(block, device=dev)
+        logits, cache = M.decode_step(
+            cfg, params, cache, tokens, policy=policy,
+            n_valid=torch.tensor([len(block)], dtype=torch.int32,
+                                 device=dev), last_only=True)
+    lg = logits[0, -1, :cfg.vocab].float()
+    top = torch.topk(lg, 2).values
+    return float(top[0] - top[1]), float(lg.max() - lg.min())
+
+
+def spec_against_plain(label, cfg, bank, spec, plain, dev):
+    """Gate (b): every request of the speculative fleet equals the plain
+    fleet's over the same bank. The fxp4 replicas see the same batches,
+    so their requests must be equal outright. A bf16 request may diverge
+    only at a near tie of the verify tier (the verify dispatch's f32
+    GEMMs run M = B(k+1) rows, a decode's B, and cuBLAS may sum them in
+    another order): each divergence's first position and top-2 logit
+    margin are printed, and every margin must be under 1% of the logit
+    range. -> the divergences."""
+    from repro_torch.core.precision import tier_policy
+    diverged = []
+    for s, p in zip(spec, plain):
+        if (s.id, s.tier) != (p.id, p.tier):
+            fail(f"{label}: request {s.id} served at {s.tier}, request "
+                 f"{p.id} at {p.tier} in the plain fleet")
+        if s.tokens == p.tokens:
+            continue
+        if s.tier != "bf16":
+            fail(f"{label}: {s.tier} request {s.id} gave {s.tokens} in the "
+                 f"speculative fleet, {p.tokens} in the plain fleet")
+        j = next(i for i, (a, b) in enumerate(zip(s.tokens, p.tokens))
+                 if a != b)
+        margin, span = top2_margin(
+            cfg, bank.for_tier("bf16"), tier_policy("bf16", "kernels"),
+            s.prompt, p.tokens[:j], dev)
+        diverged.append(dict(id=s.id, position=j, margin=margin,
+                             logit_range=span,
+                             share=margin / max(span, 1e-30)))
+        print(f"{label}: bf16 request {s.id} diverges at generated token "
+              f"{j} (speculative {s.tokens[j]}, plain {p.tokens[j]}); top-2 "
+              f"logit margin there {margin:.6f} of a range {span:.4f} "
+              f"({100 * margin / max(span, 1e-30):.3f}%)", flush=True)
+    wide = [d for d in diverged if d["share"] >= 0.01]
+    if wide:
+        fail(f"{label}: bf16 divergences at margins of 1% of the logit "
+             f"range or more: {wide}")
+    return diverged
+
+
+def check_spec_phase(dev):
+    """Reduced Qwen2.5-14B's speculative fleet (an fxp4 replica and a bf16
+    replica whose draft is the bank's fxp4 view, `spec_decode="fxp4:bf16"`,
+    k 4) through the kernels and through the plain path on the card: the
+    same tokens and the same `spec_*` counters (gate a); and against a
+    plain fxp4+bf16 fleet over the same bank (gate b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import TieredWeights
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineRouter
+    cfg = get_config("qwen2_5_14b").reduced()
+    bank = TieredWeights(M.init_params(cfg, 0, device=dev), SPEC_TIERS,
+                         consume=True)
+    kw = dict(max_slots=SLOTS, max_len=48, prefill_chunk=16,
+              kv_block_size=16, seed=0, device=dev, routing="tiered")
+    outs, counters = {}, {}
+
+    def run(backend):
+        router = EngineRouter(cfg, bank, tiers=list(SPEC_TIERS),
+                              spec_decode=SPEC, spec_k=SPEC_K,
+                              backend=backend, **kw)
+        res = drive_audited(router, spec_requests(cfg, 32))[0]
+        st = router.stats()
+        outs.setdefault(backend, res)    # the first run of each backend
+        counters.setdefault(backend, {c: st[c] for c in SPEC_COUNTERS})
+        return ([(o.tier, o.tokens) for o in res],
+                {c: st[c] for c in SPEC_COUNTERS})
+    label = f"check reduced speculative fleet {SPEC} k={SPEC_K}"
+    differ = against_plain(label, run)
+    counters = counters["kernels"]
+    plain = EngineRouter(cfg, bank, tiers=list(SPEC_TIERS),
+                         backend="kernels", **kw)
+    plain_outs = drive_audited(plain, spec_requests(cfg, 32))[0]
+    diverged = spec_against_plain(label, cfg, bank, outs["kernels"],
+                                  plain_outs, dev)
+    print(f"{label}: kernels == plain path on the card "
+          f"({sum(len(o.tokens) for o in outs['kernels'])} greedy tokens, "
+          f"counters {counters}; {len(differ)} fxp4 requests only with the "
+          "attentions' plain versions); against a plain fxp4+bf16 fleet "
+          f"over the same bank: {len(diverged)} bf16 requests diverge at a "
+          "near tie, the rest are equal", flush=True)
 
 
 #: each kernel wrapper's name and the names of its device records
@@ -1286,20 +1502,24 @@ def launches_per_decode_step(cfg, pol) -> dict:
     the FFN's GEMMs (w1/w3/w2, or the three expert banks and the three
     shared-expert GEMMs of a MoE block, whose expert and shared
     activations and router softmax are one CORDIC launch each); one
-    lm_head GEMM. A Mamba2 layer makes its in_proj and out_proj GEMMs
+    lm_head GEMM; no GEMM kernel under bf16, whose matmuls are
+    `torch.matmul` in f32. A Mamba2 layer makes its in_proj and out_proj
+    GEMMs
     and one CORDIC AF (the SiLU gate); the hybrid's shared block, after
     each group of attn_every layers, its in_proj, q/k/v/o, w1 + GELU and
     w2 GEMMs and one float attention."""
+    gemm = pol.matmul is not None       # bf16: every matmul torch.matmul
     if cfg.family in ("ssm", "hybrid"):
         apps = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
                 else 0)
-        return {"fxp_gemm_fused": 2 * cfg.n_layers + 7 * apps + 1,
+        return {"fxp_gemm_fused": gemm * (2 * cfg.n_layers + 7 * apps + 1),
                 "paged_attention_float": apps,
                 "cordic_af": cfg.n_layers, "cordic_softmax": 0,
                 "paged_attention_int": 0}
     moe = cfg.family == "moe"
     int_attn = pol.int_attention and pol.attn_softmax != "cordic"
-    return {"fxp_gemm_fused": cfg.n_layers * (4 + (6 if moe else 3)) + 1,
+    return {"fxp_gemm_fused": gemm * (cfg.n_layers * (4 + (6 if moe else 3))
+                                      + 1),
             "paged_attention_float": 0 if int_attn else cfg.n_layers,
             "cordic_af": 2 * cfg.n_layers if moe else 0,
             "cordic_softmax": cfg.n_layers if moe else 0,
@@ -1315,6 +1535,8 @@ def modes_per_decode_step(cfg, pol) -> dict:
     from repro_torch.kernels.fxp_gemm.fxp_gemm import GEMM_MODES
     n = launches_per_decode_step(cfg, pol)["fxp_gemm_fused"]
     out = dict.fromkeys(GEMM_MODES, 0)
+    if pol.matmul is None:
+        return out
     bits = FORMATS[pol.matmul].bits
     if bits > 8:
         out["x32" if bits > 16 else "wide"] = n
@@ -1664,6 +1886,235 @@ def serve_phase(dev, arch, policy_name, after=None):
         traced_step=traced)
 
 
+def spec_phase(dev):
+    """The full-width speculative path: one `TieredWeights` bank {fxp4,
+    bf16} of Qwen2.5-14B from seed 0 and two fleets over it, 4 slots per
+    engine, paged KV of block 16 (int8 for fxp4, bf16 for bf16), prefill
+    chunk 16: a plain fxp4+bf16 fleet, then the speculative fleet
+    (`spec_decode="fxp4:bf16"`, k 4: the bf16 replica a coordinator whose
+    draft is the bank's fxp4 view), each serving the serve workload pinned
+    half to each tier, audited after every round (gate c). Gates: every
+    request equal between the fleets (b, `spec_against_plain`), the
+    launches of every dispatch of each kind (d), both kernels of the path
+    launched in the speculative run, its tokens equal on a rerun. The
+    rerun traces one speculative round, then one verify dispatch and one
+    draft decode. -> (launches of the speculative run, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import tier_policy
+    from repro_torch.core.qtensor import TieredWeights
+    from repro_torch.launch.serve import (KERNELS, gemm_mode_counts,
+                                          launch_counts, reset_launch_counts)
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineRouter
+    cfg = get_config("qwen2_5_14b")
+    label = "qwen2_5_14b spec"
+    gib = 2 ** 30
+    prompt_len, gen_tokens = 64, 16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bank = TieredWeights(M.init_params(cfg, 0, device=dev), SPEC_TIERS,
+                         consume=True)
+    kw = dict(max_slots=SLOTS, max_len=prompt_len + gen_tokens,
+              prefill_chunk=16, kv_block_size=16, seed=0, device=dev,
+              routing="tiered", backend="kernels")
+    spec = EngineRouter(cfg, bank, tiers=list(SPEC_TIERS), spec_decode=SPEC,
+                        spec_k=SPEC_K, **kw)
+    plain = EngineRouter(cfg, bank, tiers=list(SPEC_TIERS), **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    on_card = torch.cuda.memory_allocated() / gib
+    setup_peak = torch.cuda.max_memory_allocated() / gib
+    per_tier = bank.bytes_by_tier()
+    print(f"serve setup: full-width {label}, {cfg.n_layers} layers, one bank "
+          f"{', '.join(f'{t} {per_tier[t] / gib:.2f} GiB' for t in SPEC_TIERS)}"
+          f" (the bf16 source kept whole), a speculative fleet {SPEC} k="
+          f"{SPEC_K} and a plain fleet over it in {setup_s:.1f} s, "
+          f"{on_card:.2f} GiB on the card, peak {setup_peak:.2f} GiB while "
+          "building", flush=True)
+
+    path = list(KERNELS)
+    mode_names = list(gemm_mode_counts())
+    pols = {t: tier_policy(t, "kernels") for t in SPEC_TIERS}
+
+    def counts():
+        c, m = launch_counts(), gemm_mode_counts()
+        return (tuple(c[k] for k in path) + tuple(m[k] for k in mode_names))
+
+    def want(tier, chunk):
+        # a [B, k+1] dispatch attends over the gathered view in plain
+        # PyTorch, as chunked prefill does: no attention kernel
+        d = launches_per_decode_step(cfg, pols[tier])
+        if chunk:
+            d["paged_attention_float"] = 0
+        m = modes_per_decode_step(cfg, pols[tier])
+        return tuple(d[k] for k in path) + tuple(m[k] for k in mode_names)
+
+    co = spec.engines[SPEC_TIERS.index("bf16")]
+    sites = {"fxp4 replica decode": (spec.engines[0].ex, "decode_and_sample",
+                                     want("fxp4", False)),
+             "draft decode": (co.draft.ex, "decode_and_sample",
+                              want("fxp4", False)),
+             "draft ingest": (co.draft.ex, "verify", want("fxp4", True)),
+             "bf16 verify": (co.verify.ex, "verify", want("bf16", True)),
+             "plain fxp4 decode": (plain.engines[0].ex, "decode_and_sample",
+                                   want("fxp4", False)),
+             "plain bf16 decode": (plain.engines[1].ex, "decode_and_sample",
+                                   want("bf16", False))}
+    spans = {name: [] for name in sites}
+    originals = {name: getattr(ex, meth)
+                 for name, (ex, meth, _) in sites.items()}
+
+    def spanned(name):
+        fn = originals[name]
+
+        def run(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            c0 = counts()
+            h0 = time.perf_counter()
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[name].append((s, e, time.perf_counter() - h0,
+                                tuple(b - a for a, b in zip(c0, counts()))))
+            return out
+        return run
+    for name, (ex, meth, _) in sites.items():
+        setattr(ex, meth, spanned(name))
+
+    plain_outs, plain_dt = drive_audited(plain, spec_requests(cfg,
+                                                              prompt_len))
+    reset_launch_counts()
+    spec_outs, spec_dt = drive_audited(spec, spec_requests(cfg, prompt_len))
+    launches = dict(launch_counts())
+    launches.update({f"fxp_gemm_fused:{m}": n
+                     for m, n in gemm_mode_counts().items()})
+    serve_peak = torch.cuda.max_memory_allocated() / gib
+    for outs in (plain_outs, spec_outs):
+        if len(outs) != 8 or any(len(o.tokens) != gen_tokens or not all(
+                0 <= t < cfg.vocab for t in o.tokens) for o in outs):
+            fail(f"serve {label}: {[(o.id, o.tokens) for o in outs]}")
+    for k in ("fxp_gemm_fused", "fxp_gemm_fused:packed",
+              "paged_attention_float"):
+        if launches[k] == 0:
+            fail(f"serve {label}: kernel {k} was never launched")
+    per_dispatch = {}
+    for name, (_, _, w) in sites.items():
+        seen = sorted({c for _, _, _, c in spans[name]})
+        if seen != [w]:
+            fail(f"serve {label}: launches per {name} {seen} of "
+                 f"{path + mode_names}, the model needs {w}")
+        per_dispatch[name] = dict(zip(path + mode_names, w))
+    diverged = spec_against_plain(f"serve {label}", cfg, bank, spec_outs,
+                                  plain_outs, dev)
+    st = spec.stats()
+    pst = plain.stats()
+    timing = {name: dict(
+        n=len(v), device_stream_ms=statistics.median(
+            s.elapsed_time(e) for s, e, _, _ in v),
+        enqueue_ms=1e3 * statistics.median(h for _, _, h, _ in v))
+        for name, v in spans.items()}
+    tok_s = {"spec": st["generated_tokens"] / spec_dt,
+             "plain": pst["generated_tokens"] / plain_dt}
+    per_verify = co.generated_tokens / max(co.spec_verify_steps, 1)
+    print(f"serve {label}: plain fleet {plain_dt:.3f} s = {tok_s['plain']:.2f}"
+          f" generated tok/s, speculative fleet {spec_dt:.3f} s = "
+          f"{tok_s['spec']:.2f} generated tok/s (plain first, one call); "
+          f"acceptance {st['spec_accepted']}/{st['spec_proposed']} = "
+          f"{st['spec_acceptance_rate']:.3f}, {st['spec_verify_steps']} "
+          f"verify steps, {per_verify:.3f} tokens per verify step on the "
+          "bf16 replica, "
+          f"{st['spec_rolled_back']} tokens rolled back; dispatches "
+          + "; ".join(f"{n}: {t['n']}, median {t['device_stream_ms']:.2f} ms "
+                      f"on the device stream, {t['enqueue_ms']:.2f} ms to "
+                      "enqueue" for n, t in timing.items())
+          + f"; launches {launches}; per dispatch {per_dispatch}; peak "
+          f"{serve_peak:.2f} GiB while serving", flush=True)
+
+    # rerun of the speculative fleet: the same tokens; one middle round
+    # traced (synced, under the profiler), then one verify dispatch and one
+    # draft decode, each alone
+    target = co.spec_verify_steps * 3 // 2    # a middle round of the rerun
+    traced = {}
+    round_fn = co._spec_round
+
+    def profiled(key, fn, *a, **k):
+        torch.cuda.synchronize()
+        act = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=act) as prof:
+            h0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - h0)
+        rec = device_records(prof)
+        n_all, dev_ms = matching(rec, None)
+        traced[key] = dict(wall_ms=wall, records=n_all, device_ms=dev_ms,
+                           idle_share=1.0 - dev_ms / wall,
+                           kernels={k: matching(rec, RECORDS[k])
+                                    for k in path},
+                           top=sorted(rec.items(),
+                                      key=lambda kv: -kv[1][1])[:6])
+        return out
+
+    def traced_round(events):
+        if "round" in traced or co.spec_verify_steps < target:
+            return round_fn(events)
+        before = co.spec_verify_steps
+        out = profiled("round", round_fn, events)
+        if co.spec_verify_steps == before:       # no slot was ready
+            del traced["round"]
+        return out
+    co._spec_round = traced_round
+    for key, name in (("verify dispatch", "bf16 verify"),
+                      ("draft decode", "draft decode")):
+        ex, meth, _ = sites[name]
+
+        def one(*a, _key=key, _fn=getattr(ex, meth), **k):
+            if "round" not in traced or _key in traced:
+                return _fn(*a, **k)
+            return profiled(_key, _fn, *a, **k)
+        setattr(ex, meth, one)
+    again, _ = drive_audited(spec, spec_requests(cfg, prompt_len))
+    co._spec_round = round_fn
+    for name, (ex, meth, _) in sites.items():
+        setattr(ex, meth, originals[name])
+    if [o.tokens for o in again] != [o.tokens for o in spec_outs]:
+        fail(f"serve {label}: rerun of the same workload gave other tokens")
+    counted = {"verify dispatch": per_dispatch["bf16 verify"],
+               "draft decode": per_dispatch["draft decode"]}
+    for key in ("round", "verify dispatch", "draft decode"):
+        if key not in traced:
+            fail(f"serve {label}: no {key} traced")
+        t = traced[key]
+        kern = " + ".join(f"{c} {k} {ms:.3f} ms"
+                          for k, (c, ms) in t["kernels"].items() if c)
+        # the profiler now and then loses a record (serve_phase); the
+        # counters hold each dispatch's launches
+        held = ("" if key not in counted else "; the counters: " + (
+            ", ".join(f"{counted[key][k]} {k}" for k in path
+                      if counted[key][k]) or "none"))
+        print(f"traced {key} of {label} (rerun, synced, under the profiler): "
+              f"{t['wall_ms']:.3f} ms wall; device time {t['device_ms']:.3f} "
+              f"ms in {t['records']} records, of the port's kernels "
+              f"{kern or 'none'}{held}; device idle "
+              f"{100 * t['idle_share']:.1f}%; largest records: " + "; ".join(
+                  f"{k[:50]} x{c} {ms:.3f} ms" for k, (c, ms) in t["top"]),
+              flush=True)
+    summary = dict(
+        arch=cfg.name, policy="spec", layers=cfg.n_layers, setup_s=setup_s,
+        gib_on_card=on_card, setup_peak_gib=setup_peak,
+        serve_peak_gib=serve_peak,
+        bank_gib={t: per_tier[t] / gib for t in SPEC_TIERS},
+        generated_tok_s=tok_s, seconds={"spec": spec_dt, "plain": plain_dt},
+        spec={c: st[c] for c in SPEC_COUNTERS + ("spec_acceptance_rate",)},
+        tokens_per_verify_step=per_verify,
+        diverged=diverged, dispatch_timing=timing,
+        launches_per_dispatch=per_dispatch,
+        traced={k: {x: v for x, v in t.items() if x != "top"}
+                for k, t in traced.items()})
+    return launches, summary
+
+
 PREFIX_TOKENS = 48             # the prefix phase's system prompt: 3 blocks
 PREFIX_WAVES = (24, 24, 24, 24, 8, 13, 19, 24)   # tails, in admission order
 
@@ -1846,17 +2297,22 @@ def main():
         dev, torch.Generator(device=dev).manual_seed(4))
     check_quantize_phase(dev)
     for arch, policy_name in PATHS:
-        if policy_name != "fleet":
+        if policy_name not in ("fleet", "spec"):
             check_phase(dev, arch, policy_name)
     check_fleet_phase(dev)
+    check_spec_phase(dev)
     launches, summaries, prefix = {}, [], None
     for arch, policy_name in PATHS:
         key = f"{arch}/{policy_name}"
-        after = (functools.partial(prefix_phase, dev)
-                 if (arch, policy_name) == ("qwen2_5_14b", "fxp8") else None)
-        launches[key], extra, summary = serve_phase(dev, arch, policy_name,
-                                                    after)
-        prefix = extra if extra is not None else prefix
+        if policy_name == "spec":
+            launches[key], summary = spec_phase(dev)
+        else:
+            after = (functools.partial(prefix_phase, dev)
+                     if (arch, policy_name) == ("qwen2_5_14b", "fxp8")
+                     else None)
+            launches[key], extra, summary = serve_phase(dev, arch,
+                                                        policy_name, after)
+            prefix = extra if extra is not None else prefix
         summaries.append(summary)
         gc.collect()                 # the engine and its weights go here
         torch.cuda.empty_cache()

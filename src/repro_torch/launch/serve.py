@@ -19,13 +19,20 @@ A precision-tiered fleet serves one replica per tier from one shared
 `TieredWeights` bank (`--policy` does not apply there):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b \
-        --tiers fxp8,fxp16 --routing tiered --kv-block-size 16
+        --tiers fxp4,fxp8,fxp16,bf16 --routing tiered --kv-block-size 16
+
+`--spec-decode fxp4:bf16` (with `--spec-k`) serves cross-tier speculative
+decoding: an fxp4 draft engine proposes k tokens a round and the bf16
+verify engine scores them in one chunked dispatch (greedy requests only).
+With `--tiers` the verify-tier replicas turn speculative and the draft
+tier joins the bank; without, every replica is a draft/verify pair.
 
 Builds random weights from `--seed` (quantize-once FxP codes for an FxP
 policy), a `ServingEngine` over a paged or contiguous KV cache, submits
 `--requests` greedy requests and prints each completion, tok/s and the
 kernel launch counts (the fused GEMM's also by mode); a fleet also prints
-its placements, tok/s and weight bytes per tier. Runs on CUDA unless
+its placements, tok/s and weight bytes per tier bank, and a speculative
+fleet its acceptance and rollback counters. Runs on CUDA unless
 `--device cpu` (the plain
 PyTorch path; use `--reduced` there). `--backend kernels` (the default)
 serves through the Hopper kernels; `reference` through the plain path.
@@ -116,14 +123,19 @@ def build_engine(cfg, policy, *, seed=0, device=None, **engine_kw):
 
 
 def build_fleet(cfg, tiers, *, backend="kernels", seed=0, device=None,
-                **router_kw):
+                spec_decode=None, **router_kw):
     """Random weights from `seed`, one `TieredWeights` bank over `tiers`
-    (each float weight dropped once its tier codes exist), and an
-    `EngineRouter` with one replica per tier over it."""
+    and the tiers of the `spec_decode` pair "draft:verify" (each float
+    weight dropped once its tier codes exist, unless bf16 is served), and
+    an `EngineRouter` over it: one replica per tier, the verify tier's a
+    speculative pair, or with no `tiers` the router's `engines` replicas,
+    each a speculative pair."""
     params = M.init_params(cfg, seed, device=device)
-    bank = TieredWeights(params, tiers, consume=True)
-    return EngineRouter(cfg, bank, tiers=tiers, backend=backend, seed=seed,
-                        device=device, **router_kw)
+    pair = spec_decode.split(":") if spec_decode else []
+    bank = TieredWeights(params, list(tiers) + pair, consume=True)
+    return EngineRouter(cfg, bank, tiers=list(tiers) or None,
+                        backend=backend, seed=seed, device=device,
+                        spec_decode=spec_decode, **router_kw)
 
 
 def serve(engine, reqs):
@@ -187,6 +199,16 @@ def main(argv=None):
     ap.add_argument("--priority", type=int, default=0,
                     help="SLO class of every request: > 0 best tier, < 0 "
                          "cheapest, 0 degrades under pressure")
+    ap.add_argument("--spec-decode", default=None, metavar="DRAFT:VERIFY",
+                    help="cross-tier speculative decoding, e.g. fxp4:bf16: "
+                         "a draft engine proposes --spec-k tokens a round, "
+                         "the verify engine scores them in one dispatch "
+                         "(greedy only). With --tiers the verify-tier "
+                         "replicas turn speculative; without, every "
+                         "replica does (--policy does not apply)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative draft depth a round "
+                         "(k <= --prefill-chunk + 1)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -201,15 +223,19 @@ def main(argv=None):
                   kv_blocks=args.kv_blocks or None,
                   prefix_cache=args.prefix_cache, scheduler=args.scheduler,
                   overlap=args.overlap)
-    if tiers:
+    if tiers or args.spec_decode:
+        fleet_kw = (dict(tier_threshold=args.tier_threshold) if tiers
+                    else dict(engines=args.engines))
         engine = build_fleet(cfg, tiers, backend=args.backend,
                              seed=args.seed, device=device,
-                             routing=args.routing,
-                             stickiness=args.stickiness,
-                             tier_threshold=args.tier_threshold, **common)
-        per_tier = engine.tiered_weights.bytes_by_tier()
+                             spec_decode=args.spec_decode,
+                             spec_k=args.spec_k, routing=args.routing,
+                             stickiness=args.stickiness, **fleet_kw,
+                             **common)
+        bank = engine.tiered_weights
+        per_tier = bank.bytes_by_tier()
         print("tiered weight banks: " + ", ".join(
-            f"{t} {per_tier[t] / 2**20:.1f} MiB" for t in tiers))
+            f"{t} {per_tier[t] / 2**20:.1f} MiB" for t in bank.tier_names))
     else:
         policy = PrecisionPolicy.from_name(args.policy, backend=args.backend)
         params = serving_params(cfg, policy, args.seed, device)
@@ -240,16 +266,24 @@ def main(argv=None):
               f"[ticks {out.admitted_tick}-{out.tick}]")
     st = engine.stats()
     total = st["prompt_tokens"] + st["generated_tokens"]
+    served = "tiers " + args.tiers if tiers else args.policy
+    if args.spec_decode:
+        served = (served + ", " if tiers else "") + "spec " + args.spec_decode
     print(f"{len(finished)} requests, {total} tokens in {dt:.2f}s = "
           f"{total / dt:.1f} tok/s on {device}, slot utilization "
-          f"{st['slot_utilization']:.0%} (policy "
-          f"{'tiers ' + args.tiers if tiers else args.policy}, backend "
+          f"{st['slot_utilization']:.0%} (policy {served}, backend "
           f"{args.backend}, arch {cfg.name}, {cfg.n_layers} layers)")
     print("kernel launches: " + ", ".join(
         f"{name} {n - before[name]}" for name, n in launch_counts().items()))
     print("fxp_gemm_fused launches by mode: " + ", ".join(
         f"{m} {n - modes_before[m]}" for m, n in gemm_mode_counts().items()))
     if isinstance(engine, EngineRouter):
+        if "spec_decode" in st:
+            print(f"speculative: {st['spec_decode']} k={st['spec_k']}, "
+                  f"{st['spec_accepted']}/{st['spec_proposed']} draft "
+                  f"tokens accepted ({st['spec_acceptance_rate']:.0%}), "
+                  f"{st['spec_verify_steps']} verify steps, "
+                  f"{st['spec_rolled_back']} tokens rolled back")
         print(f"router: {st['engines']} engines, routing "
               f"{st['routing_policy']}, dispatched {st['dispatched']}")
         if "tier_placed" in st:

@@ -244,7 +244,7 @@ def copy_pool_blocks(cache, src, dst):
 
 def decode_step(cfg, params, cache, tokens,
                 policy: Optional[PrecisionPolicy] = None, n_valid=None,
-                last_only: bool = False):
+                last_only: bool = False, ssm_stepwise: bool = False):
     """Serving step: tokens [B, S] -> (logits, cache').
 
     S = 1 is decode; S > 1 a chunked-prefill block, causal within the
@@ -252,7 +252,10 @@ def decode_step(cfg, params, cache, tokens,
     its S tokens are real (n_valid = 0 leaves the row untouched). KV and
     SSM state are written in place; the returned cache carries the new
     lengths. `last_only` keeps each row's last valid position before the
-    lm_head."""
+    lm_head. `ssm_stepwise` runs the SSM layers of an S > 1 block as S
+    one-token steps (`ssm.mamba2_layer`'s `stepwise`): the speculative
+    verify step, whose every position must score as a one-token decode
+    would."""
     _require_ported(cfg)
     x = params["embed"][tokens]
     b, s = x.shape[0], x.shape[1]
@@ -285,7 +288,8 @@ def decode_step(cfg, params, cache, tokens,
             bp = layer_params(params["blocks"], i)
             h, (st2, cv2) = mamba2_layer(
                 bp["ssm"], rmsnorm(x, bp["ssm_norm"]["w"]), cfg, policy,
-                state=st[i], conv_state=cv[i], n_valid=n_valid)
+                state=st[i], conv_state=cv[i], n_valid=n_valid,
+                stepwise=ssm_stepwise)
             st[i].copy_(st2)
             cv[i].copy_(cv2)
             x = x + h

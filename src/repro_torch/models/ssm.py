@@ -155,16 +155,19 @@ def ssd_chunked(xh, dt, A, B, C, cfg, init_state=None, chunk=128):
     return y, carry
 
 
-def _conv(cat, w, s, cw):
-    # the reference's Python sum: 0 + tap 0 + tap 1 + ..., in cat's dtype
-    out = cat[:, 0:s] * w[0]
+def _conv(cat, w, s, cw, cur=None):
+    # the reference's Python sum: 0 + tap 0 + tap 1 + ..., in cat's dtype;
+    # `cur` (default `cat`) supplies the last tap, the current token's
+    taps = [cat] * (cw - 1) + [cat if cur is None else cur]
+    out = taps[0][:, 0:s] * w[0]
     for i in range(1, cw):
-        out = out + cat[:, i:i + s] * w[i]
+        out = out + taps[i][:, i:i + s] * w[i]
     return out
 
 
 def mamba2_layer(p, x, cfg, policy: Optional[PrecisionPolicy] = None,
-                 state=None, conv_state=None, chunk=128, n_valid=None):
+                 state=None, conv_state=None, chunk=128, n_valid=None,
+                 stepwise: bool = False):
     """x [B, S, D] -> (out [B, S, D], (state [B, H, P, N] f32, conv
     window [B, cw-1, conv_ch])).
 
@@ -174,8 +177,13 @@ def mamba2_layer(p, x, cfg, policy: Optional[PrecisionPolicy] = None,
     (stateful only) says how many of the S tokens are real per row:
     dt is forced to 0 past them, so their steps are the identity, and
     each row's new conv window ends at its own last valid token (a row
-    with n_valid 0 gets its old window back exactly). Returns new
-    tensors; the caller writes them into its cache."""
+    with n_valid 0 gets its old window back exactly). `stepwise` runs a
+    stateful S > 1 step as S one-token steps: the recurrence token by
+    token, each conv tap of an earlier token read as the conv window
+    stores it, so every position's output is a one-token step's, bit for
+    bit (the SSD continuation sums in another order and rounds the
+    carried state to x's dtype). Returns new tensors; the caller writes
+    them into its cache."""
     b, s, _ = x.shape
     di, n, g, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads
     pdim, cw = cfg.ssm_headdim, cfg.conv_width
@@ -199,7 +207,10 @@ def mamba2_layer(p, x, cfg, policy: Optional[PrecisionPolicy] = None,
                 < n_valid[:, None, None])
         dt = torch.where(live, dt, 0.0)
         cat = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-        xbc_c = _silu(_conv(cat, p["conv_w"], s, cw) + p["conv_b"])
+        stored = (cat.to(conv_state.dtype).to(xbc.dtype) if stepwise
+                  else cat)
+        xbc_c = _silu(_conv(stored, p["conv_w"], s, cw, cur=cat)
+                      + p["conv_b"])
         if cw > 1:
             # each row's window ends at its own last valid token
             idx = (n_valid.long()[:, None]
@@ -216,18 +227,21 @@ def mamba2_layer(p, x, cfg, policy: Optional[PrecisionPolicy] = None,
 
     if not decode:
         y, final = ssd_chunked(xh, dt, A, Bm, Cm, cfg, chunk=chunk)
-    elif s > 1:
+    elif s > 1 and not stepwise:
         y, final = ssd_chunked(xh, dt, A, Bm, Cm, cfg,
                                init_state=state.float(), chunk=chunk)
     else:
-        # h' = h * exp(-dt A) + dt * x (outer) B ; y = C . h'
-        dt1 = dt[:, 0]                                  # [B, H]
-        dec = torch.exp(-dt1 * A)
-        Bx = torch.einsum("bhp,bgn->bhpn", dt1[..., None] * xh[:, 0].float(),
-                          Bm[:, 0].float())
-        final = state * dec[..., None, None] + Bx
-        y = torch.einsum("bgn,bhpn->bhp", Cm[:, 0].float(),
-                         final)[:, None].reshape(b, 1, h, pdim)
+        # h' = h * exp(-dt A) + dt * x (outer) B ; y = C . h', per token
+        final, ys = state, []
+        for t in range(s):
+            dt1 = dt[:, t]                              # [B, H]
+            dec = torch.exp(-dt1 * A)
+            Bx = torch.einsum("bhp,bgn->bhpn",
+                              dt1[..., None] * xh[:, t].float(),
+                              Bm[:, t].float())
+            final = final * dec[..., None, None] + Bx
+            ys.append(torch.einsum("bgn,bhpn->bhp", Cm[:, t].float(), final))
+        y = torch.stack(ys, dim=1).reshape(b, s, h, pdim)
 
     y = y + p["D"][:, None] * xh.float()
     y = y.reshape(b, s, di).to(x.dtype)

@@ -77,6 +77,8 @@ class ModelExecutor:
         # over-allocate by one chunk: a ragged write window [len, len+chunk)
         # must stay in bounds for every row with len < max_len
         self.alloc = max_len + prefill_chunk
+        self.prefill_chunk = prefill_chunk
+        self.verify_chunk = 0            # set by ensure_verify_step
         self.cache = M.init_cache(cfg, max_slots, self.alloc, policy,
                                   kv_block_size=kv_block_size,
                                   kv_blocks=kv_blocks, device=device)
@@ -191,6 +193,63 @@ class ModelExecutor:
         buf = self._token_buf.clone()
         buf[idx] = toks
         self._token_buf = buf
+        return toks
+
+    # -- speculative decoding (chunked verify + rollback support) -----------
+
+    def ensure_verify_step(self, chunk: int):
+        """Set the verify step's width `chunk` = k + 1. The steps run
+        eagerly, so nothing is compiled here; the width must fit the
+        cache: a verify window [len, len + chunk) dispatched at
+        len <= max_len - 2 stays inside the alloc = max_len +
+        prefill_chunk rows iff chunk <= prefill_chunk + 1."""
+        if not 1 <= chunk <= self.prefill_chunk + 1:
+            raise ValueError(
+                f"verify width {chunk} does not fit the cache allocation "
+                f"(1 <= chunk <= prefill_chunk + 1 = "
+                f"{self.prefill_chunk + 1})")
+        self.verify_chunk = chunk
+
+    def verify(self, tokens: np.ndarray, n_valid: np.ndarray,
+               ssm_stepwise: bool = True):
+        """One chunked verify step: the token grid [B, chunk] (draft
+        proposals, a draft ingest, or a post-rollback SSM replay) with
+        per-row valid counts, every position scored by
+        `decode_step(..., last_only=False)` and reduced to its greedy
+        token: argmax over the true vocab in f32, `sample_tokens`' greedy
+        branch. So position j's token is what a one-token decode at that
+        position samples under greedy, whenever the policy's numerics do
+        not depend on how the chunk is composed. To that end the SSM
+        layers run their positions as one-token steps (`ssm_stepwise`;
+        the reference's SSD continuation breaks it under bf16, ROADMAP.md
+        queue 3); a draft ingest, which needs no such guarantee, keeps the
+        reference's SSD with `ssm_stepwise=False`. Past each row's
+        frontier the step is fed token 0 (rows with n_valid 0 stay
+        untouched); each live row's feedback-buffer entry takes its last
+        valid position's token. Returns the tokens [B, chunk] (device,
+        unsynced) and mirrors the step's per-row `+= n_valid`."""
+        chunk = self.verify_chunk
+        if chunk == 0 or np.shape(tokens) != (self.max_slots, chunk):
+            raise ValueError(
+                f"verify wants a [{self.max_slots}, {chunk}] token grid "
+                f"(ensure_verify_step sets the width), got "
+                f"{np.shape(tokens)}")
+        nv_host = np.asarray(n_valid, np.int32)
+        nv = to_device(nv_host, self.device)
+        grid = to_device(np.asarray(tokens, np.int64), self.device)
+        live = (torch.arange(chunk, device=self.device)[None, :]
+                < nv[:, None])
+        feed = torch.where(live, grid, 0)
+        logits, self.cache = M.decode_step(self.cfg, self.params, self.cache,
+                                           feed, policy=self.policy,
+                                           n_valid=nv, last_only=False,
+                                           ssm_stepwise=ssm_stepwise)
+        toks = torch.argmax(logits[..., :self.cfg.vocab].float(),
+                            dim=-1).to(torch.int32)
+        idx = torch.clamp(nv - 1, 0, chunk - 1).long()
+        last = toks.gather(1, idx[:, None])[:, 0]
+        self._token_buf = torch.where(nv > 0, last, self._token_buf)
+        self._lengths_host += nv_host        # mirror the step's +n_valid
         return toks
 
     # -- recurrent-state rollback (speculative decoding) --------------------

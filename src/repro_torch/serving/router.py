@@ -38,12 +38,21 @@ Within a tier, an all-pinned stream gives the replica the batch
 composition a single engine at that tier would see, so its tokens equal
 that engine's (the per-tensor activation scales depend on the batch).
 
+**Speculative decoding** (`spec_decode='fxp4:bf16'`): replicas serving
+the verify tier are built as `SpecDecodeCoordinator`s: a hidden
+cheap-tier draft engine proposes k tokens a round and the verify-tier
+engine scores them in one chunked dispatch, emitting the verify tier's
+greedy stream (see `serving/speculative.py`). With `tiers`, only the
+verify-tier class turns speculative (its draft codes ride the same
+`TieredWeights` bank); every other class keeps plain replicas. On an
+untiered fleet every replica becomes a coordinator. Acceptance is
+defined against the verifier's argmax, so a speculative fleet is
+greedy-only: `submit` rejects sampled requests up front.
+
 The router exposes the surface of a single engine — `submit`, `step`,
 `events`, `stream`, `abort`, `run` — with one merged tick driving every
 replica, and `stats()` aggregates fleet totals plus `per_engine` and
-per-tier breakdowns. Speculative decoding across tiers
-(`SpecDecodeCoordinator`) is not ported yet (ROADMAP.md queue 1,
-item 8): `spec_decode` raises.
+per-tier breakdowns.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from ..core.tiers import tier_index
 from .api import FinishedRequest, Request, RequestOutput
 from .engine import ServingEngine
 from .prefix_cache import PrefixCache
+from .speculative import SpecDecodeCoordinator
 
 __all__ = ["EngineRouter", "RoutingPolicy", "RoundRobin", "LeastLoaded",
            "Tiered", "PrefixAffinity", "ROUTING_POLICIES",
@@ -245,6 +255,14 @@ class TierPolicy:
             self.degraded += 1
 
 
+def _check_bank(weights: TieredWeights, tiers):
+    for t in tiers:
+        if t not in weights:
+            raise ValueError(
+                f"tier {t!r} has no bank in the supplied TieredWeights "
+                f"(has {list(weights.tier_names)})")
+
+
 class EngineRouter:
     """Single admission queue fanning out over N `ServingEngine` replicas.
 
@@ -262,7 +280,11 @@ class EngineRouter:
     Untiered fleets share one `params` tree. Engine keywords (`max_len`,
     `prefill_chunk`, `kv_blocks`, `scheduler`, `overlap`, `device`, and
     `policy` when untiered) apply to every replica; `seed` is shared, so
-    placement never changes a sampled request's draws."""
+    placement never changes a sampled request's draws.
+
+    Speculative fleet: `spec_decode="draft:verify"` (and `spec_k`) builds
+    the verify-tier replicas as `SpecDecodeCoordinator`s over the same
+    bank (every replica, when untiered). Greedy requests only."""
 
     def __init__(self, cfg, params, *, engines: int = 2,
                  routing: Union[str, RoutingPolicy] = "least-loaded",
@@ -270,12 +292,34 @@ class EngineRouter:
                  kv_block_size: Optional[int] = None,
                  tiers: Optional[Sequence[str]] = None,
                  tier_threshold: float = 1.0, backend: str = "reference",
-                 spec_decode: Optional[str] = None, **engine_kw):
-        if spec_decode is not None:
-            raise NotImplementedError(
-                "speculative decoding across tiers is not ported yet "
-                "(ROADMAP.md queue 1, item 8)")
+                 spec_decode: Optional[str] = None, spec_k: int = 4,
+                 **engine_kw):
         self.routing = make_routing_policy(routing, stickiness=stickiness)
+        self.spec_decode: Optional[tuple] = None
+        self.spec_k = spec_k
+        if spec_decode is not None:
+            draft, _, verify = spec_decode.partition(":")
+            if not draft or not verify:
+                raise ValueError(
+                    f"spec_decode must be 'draft:verify' (ladder tier "
+                    f"names), got {spec_decode!r}")
+            if tier_index(draft) >= tier_index(verify):
+                raise ValueError(
+                    f"spec_decode draft tier {draft!r} must sit below the "
+                    f"verify tier {verify!r} on the ladder: a draft at or "
+                    "above the verifier's precision has nothing to "
+                    "accelerate")
+            self.spec_decode = (draft, verify)
+
+        def spec_coordinator(weights, verify_t):
+            d, _ = self.spec_decode
+            return SpecDecodeCoordinator(
+                cfg, weights.for_tier(d), weights.for_tier(verify_t),
+                draft_policy=make_tier_policy(d, backend=backend),
+                verify_policy=make_tier_policy(verify_t, backend=backend),
+                k=spec_k, max_slots=max_slots,
+                kv_block_size=kv_block_size, **engine_kw)
+
         if tiers is not None:
             if "policy" in engine_kw:
                 raise ValueError(
@@ -285,19 +329,24 @@ class EngineRouter:
                 raise ValueError("tiers must name at least one replica")
             for t in tiers:
                 tier_index(t)                # unknown tier -> ValueError
+            bank_tiers = list(tiers) + list(self.spec_decode or ())
             weights = (params if isinstance(params, TieredWeights)
-                       else TieredWeights(params, tiers))
-            for t in tiers:
-                if t not in weights:
-                    raise ValueError(
-                        f"tier {t!r} has no bank in the supplied "
-                        f"TieredWeights (has {list(weights.tier_names)})")
+                       else TieredWeights(params, bank_tiers))
+            _check_bank(weights, bank_tiers)
+            if self.spec_decode and self.spec_decode[1] not in tiers:
+                raise ValueError(
+                    f"spec_decode verify tier {self.spec_decode[1]!r} has "
+                    f"no replica in this fleet (tiers={list(tiers)}); the "
+                    "speculative pair accelerates the verify-tier class")
             self.tiered_weights: Optional[TieredWeights] = weights
             self.engines = [
-                ServingEngine(cfg, weights.for_tier(t),
-                              policy=make_tier_policy(t, backend=backend),
-                              max_slots=max_slots,
-                              kv_block_size=kv_block_size, **engine_kw)
+                spec_coordinator(weights, t)
+                if self.spec_decode and t == self.spec_decode[1]
+                else ServingEngine(
+                    cfg, weights.for_tier(t),
+                    policy=make_tier_policy(t, backend=backend),
+                    max_slots=max_slots, kv_block_size=kv_block_size,
+                    **engine_kw)
                 for t in tiers]
         else:
             if isinstance(self.routing, Tiered):
@@ -306,11 +355,23 @@ class EngineRouter:
                     "pass tiers=['fxp8', 'fxp16', ...]")
             if engines < 1:
                 raise ValueError("engines must be >= 1")
-            self.tiered_weights = None
-            self.engines = [
-                ServingEngine(cfg, params, max_slots=max_slots,
-                              kv_block_size=kv_block_size, **engine_kw)
-                for _ in range(engines)]
+            if self.spec_decode is not None:
+                if "policy" in engine_kw:
+                    raise ValueError(
+                        "pass either spec_decode (per-side policies "
+                        "derive from the tier pair) or policy, not both")
+                weights = (params if isinstance(params, TieredWeights)
+                           else TieredWeights(params, self.spec_decode))
+                _check_bank(weights, self.spec_decode)
+                self.tiered_weights = weights
+                self.engines = [spec_coordinator(weights, self.spec_decode[1])
+                                for _ in range(engines)]
+            else:
+                self.tiered_weights = None
+                self.engines = [
+                    ServingEngine(cfg, params, max_slots=max_slots,
+                                  kv_block_size=kv_block_size, **engine_kw)
+                    for _ in range(engines)]
         self.max_slots = max_slots
         # tier class map: ladder tier -> replica indices serving it (an
         # untiered fleet lands here too, so explicit pins still route)
@@ -381,6 +442,15 @@ class EngineRouter:
         """Validate against the replica geometry and the fleet's served
         tiers, assign a router-unique id and queue. Every check runs
         before any state changes, and ids are unique across the fleet."""
+        if self.spec_decode is not None:
+            s = request.sampling
+            if s.temperature > 0.0 or s.top_k > 0:
+                raise ValueError(
+                    "a spec_decode fleet serves greedy requests only "
+                    "(temperature<=0, top_k==0): speculative acceptance "
+                    "is defined against the verifier's argmax, and tier "
+                    "selection must never decide whether a request may "
+                    "sample")
         self.engines[0].sched.validate(request, check_tier=False)
         if request.tier is not None:
             tier_index(request.tier)         # unknown name -> ValueError
@@ -561,6 +631,18 @@ class EngineRouter:
             st["affinity_spill_rate"] = (self.routing.affinity_spills
                                          / max(routed, 1))
         st["tiers"] = [e.tier for e in self.engines]
+        if self.spec_decode is not None:
+            proposed = sum(s.get("spec_proposed", 0) for s in per)
+            accepted = sum(s.get("spec_accepted", 0) for s in per)
+            st["spec_decode"] = ":".join(self.spec_decode)
+            st["spec_k"] = self.spec_k
+            st["spec_proposed"] = proposed
+            st["spec_accepted"] = accepted
+            st["spec_acceptance_rate"] = accepted / max(proposed, 1)
+            st["spec_verify_steps"] = sum(s.get("spec_verify_steps", 0)
+                                          for s in per)
+            st["spec_rolled_back"] = sum(s.get("spec_rolled_back", 0)
+                                         for s in per)
         if self.tier_policy is not None:
             st["tier_threshold"] = self.tier_policy.threshold
             st["tier_pinned"] = self.tier_policy.pinned

@@ -1105,3 +1105,51 @@ def test_ssm_decode_step_launches_as_graph_kernel_nodes(cuda, arch):
                             "paged_attention_kernel", "cordic_softmax_kernel",
                             "paged_attention_int_kernel")]
     assert nodes == want, (nodes, sorted(set(names))[:8])
+
+
+@pytest.mark.parametrize("tier", ["bf16", "fxp4"])
+def test_spec_tier_decode_step_launches_as_graph_kernel_nodes(cuda, tier):
+    """One decode step of reduced Qwen2.5-14B on each side of the
+    speculative pair (the bf16 and fxp4 views of one bank, kernels
+    backend), captured in a CUDA graph. bf16: no GEMM kernel of the port
+    (its matmuls are torch.matmul in f32) and one float paged attention
+    per layer on the bf16 pool. fxp4, the draft: one packed GEMM per q,
+    k, v, o, w1 + SiLU, w3 and w2 of every layer and the lm_head, and one
+    float paged attention per layer on the int8 pool. The wrappers'
+    counters say the same."""
+    from repro_torch.core.precision import tier_policy
+    from repro_torch.core.qtensor import TieredWeights
+    from repro_torch.models import model as M
+    cfg = get_config("qwen2_5_14b").reduced()
+    pol = tier_policy(tier, backend="kernels")
+    params = TieredWeights(M.init_params(cfg, 0, device=cuda),
+                           ["fxp4", "bf16"]).for_tier(tier)
+    cache = M.init_cache(cfg, 4, 32, pol, kv_block_size=16, device=cuda)
+    assert cache["kv"]["k"].dtype == (torch.bfloat16 if tier == "bf16"
+                                      else torch.int8)
+    cache["block_tables"][:, :2] = torch.arange(
+        8, device=cuda, dtype=torch.int32).reshape(4, 2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (4, 1), device=cuda, generator=gen)
+    n_valid = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=cuda)
+
+    def step():
+        return M.decode_step(cfg, params, cache, tokens, policy=pol,
+                             n_valid=n_valid, last_only=True)
+    step()                               # plans and buffers before capture
+    torch.cuda.synchronize()
+    counters = (fxp_gemm_fused, cordic_af, paged_attention_float,
+                cordic_softmax, paged_attention_int)
+    before = [c.launches for c in counters]
+    packed_before = fxp_gemm_fused.launches_by_mode["packed"]
+    names = _graph_kernel_names(step)
+    counted = [c.launches - b for c, b in zip(counters, before)]
+    gemms = 0 if tier == "bf16" else 7 * cfg.n_layers + 1
+    want = [gemms, 0, cfg.n_layers, 0, 0]
+    assert counted == want
+    assert fxp_gemm_fused.launches_by_mode["packed"] - packed_before == gemms
+    nodes = [sum(kernel in name for name in names)
+             for kernel in ("fxp_gemm_tc_kernel", "cordic_af_kernel",
+                            "paged_attention_kernel", "cordic_softmax_kernel",
+                            "paged_attention_int_kernel")]
+    assert nodes == want, (nodes, sorted(set(names))[:8])

@@ -318,8 +318,8 @@ def test_router_ctor_validation(qwen):
         EngineRouter(cfg, params, tiers=["fxp8", "fxp7"], **KW)
     with pytest.raises(ValueError, match="no bank"):
         EngineRouter(cfg, bank, tiers=["fxp4", "fxp8"], **KW)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        EngineRouter(cfg, bank, tiers=FLEET, spec_decode="fxp8:fxp16", **KW)
+    with pytest.raises(ValueError, match="no bank"):
+        EngineRouter(cfg, bank, tiers=FLEET, spec_decode="fxp4:fxp16", **KW)
 
 
 def test_per_tier_fleet_stats(qwen):
