@@ -13,14 +13,16 @@ Phases, one line each, any failure exits non-zero before the last line:
                 projections, on int8, on packed FxP4 weights, on FxP16
                 codes in int16 (the wide mode beside torch.matmul of the
                 codes in f32, also at codes at the ends of int16) and on
-                FxP32 (and, at w1, FxP24) codes in int32 (the x32 mode on
-                the CUDA cores, beside torch.matmul of the codes in f32,
-                also at codes at the ends of int32), and,
+                FxP32 (and, at w1, FxP24) codes in int32 (the x32 mode,
+                byte planes on the tensor cores, beside torch.matmul of
+                the codes in f32, also at codes at the ends of int32),
+                and,
                 batched over 64 experts, at the MoE banks, int8 and packed
                 FxP4; every GEMM window holds a record of its kernel for
                 each call; the raw code GEMMs
-                (bit-equal, all on the tensor cores: int8 beside
-                torch._int_mm, int16, packed FxP4); both attentions (a
+                (bit-equal: int8 beside torch._int_mm, int16 and packed
+                FxP4 on the tensor cores, int32 inside the caller's bound
+                on the CUDA cores, beside torch.matmul of f32 codes); both attentions (a
                 cluster of CTAs per row and KV head; within 1%, finite,
                 one launch a call, two calls bit-identical, the cluster
                 size on each line) at g 5 over 1024-2000 and 4000-12000
@@ -345,8 +347,9 @@ def gemm_phase(dev, gen, packed=False, shapes=DENSE_GEMM_SHAPES,
 def code_gemm_phase(dev, gen):
     """The raw code GEMMs at M 32, K 5120, N 5120: int8 codes beside
     torch._int_mm (one PyTorch call for the same int32 product), packed
-    FxP4 weights, and FxP12 codes in int16 at K 512 (inside the bound
-    K * qmax^2 < 2^31 the caller owns); each bit-equal to its plain
+    FxP4 weights, and FxP12 codes in int16 and in int32 at K 512 (inside
+    the bound K * qmax^2 < 2^31 the caller owns; int32 codes take the
+    tiled int32 kernel on the CUDA cores); each bit-equal to its plain
     version. The kernel's time counts its own records; `call_device_ms`
     every device record of a wrapper call (with the zeroed split-K
     workspace).
@@ -367,7 +370,11 @@ def code_gemm_phase(dev, gen):
               "fxp_gemm_tc_kernel"),
              ("fxp_gemm_codes_int16", "int16 FxP12, K 512", fxp_gemm_codes,
               fxp_gemm_codes_plain, codes((m, 512), 2047, torch.int16),
-              codes((512, n), 2047, torch.int16), "fxp_gemm_tc_kernel")]
+              codes((512, n), 2047, torch.int16), "fxp_gemm_tc_kernel"),
+             ("fxp_gemm_codes_int32", "int32 codes in +-2047, K 512",
+              fxp_gemm_codes, fxp_gemm_codes_plain,
+              codes((m, 512), 2047, torch.int32),
+              codes((512, n), 2047, torch.int32), "gemm_codes_wide_kernel")]
     rows = {}
     for name, what, fn, plain, x, w, record in cases:
         got, ref = fn(x, w), plain(x, w)
@@ -376,7 +383,7 @@ def code_gemm_phase(dev, gen):
             fail(f"{name} ({what}): not bit-equal to plain")
         win = {}
         ms = timed(lambda: fn(x, w), 20, record, win)
-        held_all(f"{name} ({what})", win)
+        held_all(f"{name} ({what})", win, record)
         call_ms = timed(lambda: fn(x, w), 20)
         pms = timed(lambda: plain(x, w), 3)
         kk = x.shape[1]
@@ -384,12 +391,16 @@ def code_gemm_phase(dev, gen):
         nbytes += 4 * m * n
         if x.dtype == torch.int8:
             bms, by = bound_ms(nbytes, 2.0 * m * kk * n, INT8_OPS_PER_S)
+        elif x.dtype == torch.int32:
+            # on the CUDA cores: the products at the f32 rate (the table
+            # has no int32 rate), as for the x32 mode
+            bms, by = bound_ms(nbytes, 2.0 * m * kk * n, F32_OPS_PER_S)
         else:           # no published int16 rate: the bytes bound alone
             bms, by = bound_ms(nbytes, 0.0, INT8_OPS_PER_S)
         lib_ms, lib_note = None, "none"
         if name == "fxp_gemm_codes":
             lib_ms, lib_note = library_int_mm(x, w, ref)
-        elif x.dtype == torch.int16:
+        elif x.dtype != torch.int8:
             # torch.matmul of the same codes already cast to f32 (TF32
             # off), as beside the wide and x32 modes (a yardstick: its f32
             # sums round past 2^24)
@@ -548,18 +559,20 @@ def wide_gemm_phase(dev, gen):
     return rows
 
 
-def x32_gemm_phase(dev, gen):
-    """The fused GEMM's x32 mode (csrc/fxp_gemm.cu, x32: int32 codes on
-    the CUDA cores, the exact sum in 128 bits rounded once to f32) at the
+def x32_gemm_phase(dev, gen, record="fxp_gemm_tc_kernel"):
+    """The fused GEMM's x32 mode (csrc/fxp_gemm.cu: int32 codes as four
+    byte planes on the tensor-core core, the exact sum in 128 bits rounded
+    once to f32) at the
     full-width Qwen2.5-14B's shapes on FxP32 codes (the fxp32 path), and
     w1 + SiLU on FxP24 codes too, each bit-equal to its plain version,
     beside torch.matmul of the same codes already cast to f32 (TF32 off;
     it rounds every code past 2^24 and every partial sum: a yardstick, not
     the same function). The bound counts the int32 operand bytes and the
     2 M K N products at the f32 rate outside the tensor cores (the table
-    has no int32 rate). Each window must hold one x32 record a call. Then
-    codes at the ends of int32 at w2's shape (sums of K * 2^62, past
-    2^64): bit-equal too."""
+    has no int32 rate). Each window must hold one record of `record` a
+    call (tools/x32_sweep.py names an older kernel's record to time an
+    older checkout). Then codes at the ends of int32 at w2's shape (sums
+    of K * 2^62, past 2^64): bit-equal too, and timed."""
     from repro_torch.kernels.fxp_gemm.fxp_gemm import (
         fxp_gemm_fused, fxp_gemm_fused_plain)
     hr, lv = 8, 10                # default_stages of FxP24 and FxP32
@@ -592,8 +605,8 @@ def x32_gemm_phase(dev, gen):
             fail(f"{what}: not bit-equal to plain (max |err| "
                  f"{(got - ref).abs().max().item()})")
         win = {}
-        ms = timed(run, 20, "fxp_gemm_x32_kernel", win)
-        held_all(what, win, "fxp_gemm_x32_kernel")
+        ms = timed(run, 20, record, win)
+        held_all(what, win, record)
         call_ms = cuda_ms(run, 20)
         pms = timed(plain, 2)
         xf, wf = x.float(), w.float()
@@ -628,11 +641,13 @@ def x32_gemm_phase(dev, gen):
         if not torch.equal(got, ref):
             fail(f"fxp_gemm_fused x32 at extreme codes {m}x{k}x{n}+{af}: "
                  "not bit-equal to plain")
-    ms = timed(lambda: fxp_gemm_fused(x, w, scale), 20, "fxp_gemm_x32_kernel")
+    win = {}
+    ms = timed(lambda: fxp_gemm_fused(x, w, scale), 20, record, win)
+    held_all("fxp_gemm_fused x32 at extreme codes", win, record)
     print(f"kernel fxp_gemm_fused x32 at codes +-(2^31 - 1) and -2^31 M={m} "
-          f"K={k} N={n}: {ms:.4f} ms on the device, sums up to "
-          f"{float(k) * 2.0 ** 62:.3e}, bit-equal with and without silu",
-          flush=True)
+          f"K={k} N={n}: {ms:.4f} ms on the device ({win['held']} of "
+          f"{win['iters']} records), sums up to {float(k) * 2.0 ** 62:.3e}, "
+          "bit-equal with and without silu", flush=True)
     return rows
 
 
@@ -1487,8 +1502,7 @@ def check_spec_phase(dev):
 
 
 #: each kernel wrapper's name and the names of its device records
-RECORDS = {"fxp_gemm_fused": ("fxp_gemm_tc_kernel",
-                              "fxp_gemm_x32_kernel"),
+RECORDS = {"fxp_gemm_fused": "fxp_gemm_tc_kernel",
            "paged_attention_float": "paged_attention_kernel",
            "cordic_af": "cordic_af_kernel",
            "cordic_softmax": "cordic_softmax_kernel",
@@ -2400,6 +2414,11 @@ def main():
                      code_rows["fxp_gemm_codes_int16"], launches,
                      shape=code_rows["fxp_gemm_codes_int16"]["shape"],
                      call_device_ms=code_rows["fxp_gemm_codes_int16"][
+                         "call_device_ms"], on_path=False),
+        kernel_entry("fxp_gemm_codes_int32", gemm_src, f"{gemm_ref}:111",
+                     code_rows["fxp_gemm_codes_int32"], launches,
+                     shape=code_rows["fxp_gemm_codes_int32"]["shape"],
+                     call_device_ms=code_rows["fxp_gemm_codes_int32"][
                          "call_device_ms"], on_path=False),
         kernel_entry("fxp4_gemm_packed", gemm_src, f"{gemm_ref}:138",
                      code_rows["fxp4_gemm_packed"], launches,

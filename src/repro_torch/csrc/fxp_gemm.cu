@@ -10,22 +10,20 @@
 // integer sums do not depend on order, so the result is bit-identical to
 // the plain version (for int8 codes while K * 127^2 < 2^31).
 //
-// Which mode runs where:
-//  * the tensor-core core (tc::fxp_gemm_tc_kernel), every fused mode:
-//    int8 codes, dense (fxp_gemm_fused) and MoE expert banks
+// Which mode runs where: every mode on the tensor-core core
+// (tc::fxp_gemm_tc_kernel), each its own instantiation of one template:
+//  * int8 codes, dense (fxp_gemm_fused) and MoE expert banks
 //    (fxp_gemm_fused_batched: A [E, M, K], B [E, K, N], scale [E, N],
 //    out [E, M, N], one launch for the bank); packed FxP4 weights, dense
 //    (fxp_gemm_fused_packed) and banks (fxp_gemm_fused_batched_packed);
 //    codes wider than 8 bits (FxP12/16 in int16: fxp_gemm_fused_wide);
-//    and the raw code GEMMs, which write the int32 sums with no epilogue
-//    (fxp_gemm_codes_int8 on int8 codes or packed FxP4 weights,
-//    fxp_gemm_codes_int16). Each mode is its own instantiation of one
-//    template;
-//  * the CUDA cores (x32::fxp_gemm_x32_kernel): FxP24/32 codes in int32
-//    (fxp_gemm_fused_x32), the PE's 1X FxP32 mode, with the same epilogue;
-//  * a plain tiled int32 multiply-add (gemm_codes_wide_kernel): raw
-//    int32 codes. As in the reference, the caller owns the overflow-free
-//    bound K * qmax^2 < 2^31 past 8 bits.
+//    FxP24/32 codes in int32 (fxp_gemm_fused_x32, the PE's 1X FxP32
+//    mode); and the raw code GEMMs, which write the int32 sums with no
+//    epilogue (fxp_gemm_codes_int8 on int8 codes or packed FxP4 weights,
+//    fxp_gemm_codes_int16);
+//  * but for the raw int32 code GEMM, a plain tiled int32 multiply-add
+//    on the CUDA cores (gemm_codes_wide_kernel). As in the reference, the
+//    caller owns the overflow-free bound K * qmax^2 < 2^31 past 8 bits.
 //
 // What bounds them: at decode M is the slot count (4), so every weight
 // byte is used M times — about 2M integer operations per byte, far below
@@ -41,19 +39,21 @@
 //  * mma.sync m16n8k32 on s8/u8 operands with int32 accumulators, the
 //    operands swapped: the weight's columns are the MMA's 16 rows and the
 //    activation rows its 8 columns, so 4 decode rows pad half of a tile.
-//    Row tiles of 8, 16 or 32 activation rows (16 at most for int16):
+//    Row tiles of 8, 16 or 32 activation rows (16 at most for int16 and
+//    int32 codes):
 //    one to four MMA column tiles share each weight fragment, so a
 //    16-row prefill chunk reads B once.
 //  * The quantize-once [K, N] layout stays. B streams through a ring of
 //    four stages in shared memory (128 k rows of 128 bytes: 128 int8, 64
-//    int16 or, packed, 256 FxP4 columns, with the activation slice beside
-//    it), filled by cp.async.cg 16-byte copies whose chunks are
+//    int16, 32 int32 or, packed, 256 FxP4 columns, with the activation
+//    slice beside it), filled by cp.async.cg 16-byte copies whose chunks are
 //    XOR-swizzled so that a warp's loads hit distinct banks; each
 //    thread's copy addresses are worked out once, before the k loop. A
-//    lane reads 8 columns of 8 k rows and transposes them in registers
-//    (transpose4) into k-contiguous fragments. A warp takes 64 columns
-//    and its own k32 steps of each stage (for int16 codes all of them),
-//    so every activation code is split once per block.
+//    lane reads 8 columns (int32: 4) of 8 k rows and transposes them in
+//    registers (transpose4) into k-contiguous fragments. A warp takes 64
+//    columns (int32: 32) and its own k32 steps of each stage (for int16
+//    and int32 codes all of them), so every activation code is split
+//    once per block.
 //  * Byte planes: an int16 code c is h * 256 + l, with a signed high byte
 //    h = c >> 8 in [-128, 127] and an unsigned low byte l = c & 255. Four
 //    products per tile, hh (s8.s8), hl (s8.u8), lh (u8.s8) and ll
@@ -92,7 +92,8 @@
 //    packed 32-row tiles, two for the rest, as measured): the warps'
 //    partial tiles are summed in shared memory, each block adds its tile
 //    into a workspace with atomics (int32; int64 for int16 codes, whose
-//    unsigned long long atomics wrap exactly for signed values), and the
+//    unsigned long long atomics wrap exactly for signed values; 128 bits
+//    for int32 codes, below), and the
 //    last block of a tile, counted by a semaphore, applies the epilogue. The
 //    epilogue is bound by latency, not by bandwidth: each thread owns one
 //    column, its scale read before the k loop, and issues all its loads
@@ -120,27 +121,32 @@
 //    On packed weights the claiming loop's registers leave two 256-thread
 //    blocks on an SM instead of three, which cost the packed prefill and
 //    full banks about 5%, so packed banks stay on the grid.
-//
-// The x32 kernel (int32 codes). A product of two codes reaches 2^62 and
-// a sum over K rows needs more than 64 bits (~2^76 at K 13824), so the
-// exact sum is held in 128 bits and rounded once to f32, to nearest even,
-// in integer arithmetic: through f64 it would round twice. Each
-// activation code a splits into a signed high half h = a >> 16 and an
-// unsigned low half l = a & 0xFFFF; a lane sums h * w and l * w over its
-// k rows in two int64 accumulators, one mad.wide.s32 each (|h w| < 2^46,
-// |l w| < 2^47: exact for up to 2^16 rows, and a block's slice is at most
-// kMaxKSplit = 32768), and h * 2^16 + l becomes a 128-bit sum only after
-// the k loop. A lane takes 4 columns (one 16-byte load of a weight row)
-// and 4 activation rows; the lanes of a warp hold 32 k of each row and
-// pass them round by shuffles, so the kernel needs no shared memory in its
-// k loop. A block's four warps take turns over 32-row chunks of its K
-// slice on the same 128 columns and sum in shared memory. Split K: each
-// block writes its slice's 128-bit partials to a slot of its own (no
-// atomics, nothing zeroed), and the last block of a tile, counted by a
-// semaphore, adds the slots. With 2 mad.wide a product, the decode shapes
-// (4 rows) sit near both the bytes bound and the CUDA cores' integer
-// rate; the tensor cores (16 byte-plane products of 4 planes) are not
-// used.
+//  * int32 codes (the x32 mode): a product of two codes reaches 2^62 and
+//    a sum over K rows needs more than 64 bits (~2^76 at K 13824), so the
+//    exact sum is held in 128 bits and rounded once to f32, to nearest
+//    even, in integer arithmetic (to_f32_rn): through f64 it would round
+//    twice. A code c is four byte planes, c = c3 2^24 + c2 2^16 + c1 2^8
+//    + c0, with a signed top byte c3 = c >> 24 in [-128, 127] and
+//    unsigned bytes c2, c1, c0 in [0, 255]. A stage row's 128 bytes hold
+//    32 columns; a lane's 16-byte load of a row holds 4 of them, and
+//    transpose4 of one column's words in four k rows gives exactly its
+//    four plane words, the MMA fragments of those rows. The 16 plane
+//    products (s8 for plane 3, u8 for the rest) go to int32 accumulators
+//    grouped by their weight 2^(8s), s = i + j: seven groups. A group
+//    adds at most 2 * 255^2 + 2 * 128 * 255 = 195330 in magnitude per k
+//    row (s = 3: two u8 x u8 and two u8 x s8 products; s = 2, three
+//    u8 x u8, at most 195075), so an accumulator is exact over
+//    kMaxAccRowsX32 = 8192 rows (8192 * 195330 < 2^31); the s = 2 group
+//    of codes whose three low bytes are 255 wraps at 11009 rows. A warp's
+//    accumulators sum only its own k32 steps, one of each stage's four,
+//    so a block's slice of at most kMaxKSplitWide = 32768 rows keeps each
+//    at 8192. After the k loop the
+//    groups combine exactly into 128 bits (x32_sum) and the warps' tiles
+//    are added as 128-bit sums. Split K adds each block's 128-bit tile
+//    into the workspace with two 64-bit atomics, the low word's carry
+//    into the high one, exact in any order. The x32 mode moves 4 bytes a
+//    weight code; the MMAs (16 for each int8 tile's one) stay far below
+//    the tensor cores' rate at these row counts.
 //
 // Not yet: wgmma and TMA (at M <= 32 these shapes are bound by bytes, far
 // below mma.sync's integer rate); a balanced (stream-K) split of K, so
@@ -172,6 +178,49 @@ __device__ __forceinline__ void transpose4(const unsigned (&r)[4],
   col[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));
 }
 
+// A signed 128-bit integer, hi * 2^64 + lo: the x32 mode's exact sums
+// (lo first, so that a workspace entry is two 64-bit words for atomics).
+struct I128 {
+  unsigned long long lo;
+  long long hi;
+};
+
+__device__ __forceinline__ I128 add128(I128 a, I128 b) {
+  I128 r;
+  r.lo = a.lo + b.lo;
+  r.hi = a.hi + b.hi + (r.lo < a.lo ? 1 : 0);
+  return r;
+}
+
+__device__ __forceinline__ I128 i128(long long v) {
+  return I128{static_cast<unsigned long long>(v), v >> 63};
+}
+
+// v rounded once to f32, to nearest even: |v| keeps its top 64 bits with
+// every bit shifted out ORed into bit 0 (round to odd, 40 bits below
+// f32's 24), which one conversion then rounds correctly; the power-of-two
+// scale back is exact.
+__device__ __forceinline__ float to_f32_rn(I128 v) {
+  unsigned long long hi = static_cast<unsigned long long>(v.hi);
+  unsigned long long lo = v.lo;
+  const bool neg = v.hi < 0;
+  if (neg) {
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+  float f;
+  if (hi == 0ull) {
+    f = __ull2float_rn(lo);
+  } else {
+    const int s = 64 - __clzll(static_cast<long long>(hi));   // 1..64
+    const unsigned long long m =
+        s == 64 ? (hi | (lo != 0ull ? 1ull : 0ull))
+                : (hi << (64 - s)) | (lo >> s) |
+                      ((lo << (64 - s)) != 0ull ? 1ull : 0ull);
+    f = __fmul_rn(__ull2float_rn(m), __int_as_float((127 + s) << 23));
+  }
+  return neg ? -f : f;
+}
 
 // ---------------------------------------------------------------------------
 // The tensor-core core: byte planes on mma.sync m16n8k32 (s8/u8)
@@ -183,8 +232,17 @@ constexpr int kRowBytes = 128;         // a stage's weight row: 128 int8, 64
 constexpr int kBK = 128;               // k rows per stage
 constexpr int kStages = 4;             // the ring of stages
 // K rows per block: each int32 plane partial stays exact
-// (2 * 128 * 255 * 32768 < 2^31)
+// (2 * 128 * 255 * 32768 < 2^31; int32 codes, see kMaxAccRowsX32)
 constexpr int kMaxKSplitWide = 32768;
+// K rows one int32 accumulator of the x32 mode sums at most: a group of
+// plane products adds at most 195330 in magnitude a row (see the header),
+// and 8192 * 195330 < 2^31
+constexpr int kMaxAccRowsX32 = 8192;
+
+// MMA row tiles (16 weight columns each) of a warp: a lane's 8 columns,
+// or for int32 codes the 4 of its 16-byte load
+template <typename T>
+constexpr int kTiles = sizeof(T) == 4 ? 2 : 4;
 
 // A block over codes T (or, kPacked, FxP4 nibble bytes) with MT
 // activation rows: kBN output columns in groups of 64, one group per
@@ -204,7 +262,7 @@ struct Shape {
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kRowCodes = kRowBytes / sizeof(T);  // as stored
   static constexpr int kBN = kPacked ? 2 * kRowBytes : kRowCodes;
-  static constexpr int kGroups = kBN / 64;
+  static constexpr int kGroups = kBN / (16 * kTiles<T>);
   static constexpr int kKWarps = kWarps / kGroups;     // warps per group
   static constexpr int kSteps = kBK / (32 * kKWarps);  // k32 steps a warp
   static_assert(kGroups >= 1 && kWarps % kGroups == 0 && kSteps >= 1 &&
@@ -213,8 +271,11 @@ struct Shape {
   static constexpr int kWBytes = kBK * kRowBytes;
   static constexpr int kAStride = (kBK + 16) * sizeof(T);
   static constexpr int kStageBytes = kWBytes + MT * kAStride;
-  // int8 codes: one int32 product; int16: the exact int64 plane sum
-  using Acc = typename std::conditional<sizeof(T) == 1, int, long long>::type;
+  // int8 codes: one int32 product; int16: the exact int64 plane sum;
+  // int32: the exact 128-bit sum
+  using Acc = typename std::conditional<
+      sizeof(T) == 1, int,
+      typename std::conditional<sizeof(T) == 2, long long, I128>::type>::type;
   // the partial tiles' rows, padded by one so that the warps' writes
   // spread over the banks
   static constexpr int kRedStride = kBN + 1;
@@ -425,9 +486,10 @@ __device__ __forceinline__ void unpack_rows(const unsigned (&r)[4],
 }
 
 // int32 accumulators per lane: a plane (int8 codes: one; int16: hh,
-// hl + lh, ll) x 4 MMA row tiles x NT column tiles x 4
+// hl + lh, ll; int32: the seven groups of plane products by weight) x
+// kTiles MMA row tiles x NT column tiles x 4
 template <typename T>
-constexpr int kPlanes = sizeof(T) == 1 ? 1 : 3;
+constexpr int kPlanes = sizeof(T) == 1 ? 1 : sizeof(T) == 2 ? 3 : 7;
 
 // One k32 step of a warp over stage `st`: weight rows r0..r0+31 of
 // columns c0 + 8g .. c0 + 8g + 7 for lane (g, t), against the same k of
@@ -439,7 +501,7 @@ constexpr int kPlanes = sizeof(T) == 1 ? 1 : 3;
 template <typename T, int MT, bool kPacked>
 __device__ __forceinline__ void k32_step(
     const unsigned char* st, int r0, int wl, int al,
-    int (&acc)[kPlanes<T>][4][MT / 8][4]) {
+    int (&acc)[kPlanes<T>][kTiles<T>][MT / 8][4]) {
   using S = Shape<T, MT, kPacked>;
   constexpr bool kWide = sizeof(T) == 2;
   constexpr int kP = kWide ? 2 : 1;          // byte planes of a code
@@ -514,6 +576,138 @@ __device__ __forceinline__ void k32_step(
   }
 }
 
+// One k32 step of a warp over stage `st`, int32 codes: lane (g, t) loads
+// 16 bytes, columns c0 + 4g .. c0 + 4g + 3, of each weight row
+// r0 + 16h + 4t + j (j = 0..3); transpose4 of one column's four words
+// gives its four byte planes of those four k rows. MMA tile i's row g is
+// column c0 + 4g + 2i and its row g + 8 column c0 + 4g + 2i + 1; its
+// column n is activation row 8 nt + n, whose codes split the same way.
+// The product of weight plane p and activation plane q goes to group
+// p + q, as s8 where the plane is the top byte (3), else as u8.
+template <int MT>
+__device__ __forceinline__ void k32_step_x32(
+    const unsigned char* st, int r0, int wl, int al,
+    int (&acc)[kPlanes<int>][kTiles<int>][MT / 8][4]) {
+  using S = Shape<int, MT>;
+  const unsigned char* w = st + wl + r0 * kRowBytes;
+  // col[p][h][c]: plane p of rows r0 + 16h + 4t .. +3 of column c0 + 4g + c
+  int col[4][2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint4 v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = *reinterpret_cast<const uint4*>(w + (16 * h + j) * kRowBytes);
+    }
+    const unsigned c0[4] = {v[0].x, v[1].x, v[2].x, v[3].x};
+    const unsigned c1[4] = {v[0].y, v[1].y, v[2].y, v[3].y};
+    const unsigned c2[4] = {v[0].z, v[1].z, v[2].z, v[3].z};
+    const unsigned c3[4] = {v[0].w, v[1].w, v[2].w, v[3].w};
+    int planes[4][4];                       // [column][plane]
+    transpose4(c0, planes[0]);
+    transpose4(c1, planes[1]);
+    transpose4(c2, planes[2]);
+    transpose4(c3, planes[3]);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) col[p][h][c] = planes[c][p];
+  }
+  const unsigned char* a0 = st + S::kWBytes + al + r0 * 4;
+#pragma unroll
+  for (int nt = 0; nt < MT / 8; ++nt) {
+    // activation row 8 nt + g, k rows r0 + 4t .. and r0 + 16 + 4t ..
+    const unsigned char* arow = a0 + nt * 8 * S::kAStride;
+    unsigned b[4][2];                       // [plane][h]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 v = *reinterpret_cast<const uint4*>(arow + 64 * h);
+      const unsigned r[4] = {v.x, v.y, v.z, v.w};
+      int q[4];
+      transpose4(r, q);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) b[p][h] = static_cast<unsigned>(q[p]);
+    }
+#pragma unroll
+    for (int i = 0; i < kTiles<int>; ++i) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        a[p][0] = static_cast<unsigned>(col[p][0][2 * i]);
+        a[p][1] = static_cast<unsigned>(col[p][0][2 * i + 1]);
+        a[p][2] = static_cast<unsigned>(col[p][1][2 * i]);
+        a[p][3] = static_cast<unsigned>(col[p][1][2 * i + 1]);
+      }
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          mma_k32<false, false>(acc[p + q][i][nt], a[p], b[q][0], b[q][1]);
+        }
+        mma_k32<false, true>(acc[p + 3][i][nt], a[p], b[3][0], b[3][1]);
+        mma_k32<true, false>(acc[p + 3][i][nt], a[3], b[p][0], b[p][1]);
+      }
+      mma_k32<true, true>(acc[6][i][nt], a[3], b[3][0], b[3][1]);
+    }
+  }
+}
+
+// The exact sum of an x32 lane's seven plane groups g[s] (weight 2^(8s)):
+// the low four (|sum| < 2^56) and the high three (< 2^48, weight 2^32)
+// in int64, then joined in 128 bits.
+__device__ __forceinline__ I128 x32_sum(const int (&g)[kPlanes<int>]) {
+  const long long lo = g[0] + 256ll * g[1] + 65536ll * g[2] +
+                       16777216ll * g[3];
+  const long long hi = g[4] + 256ll * g[5] + 65536ll * g[6];
+  return add128(i128(lo), I128{static_cast<unsigned long long>(hi) << 32,
+                               hi >> 32});
+}
+
+// The split-K workspace of each sum type: a block adds its partial (none
+// when it is zero) with atomics, and the tile's last block reads the
+// total from the L2. 128-bit sums take two 64-bit atomics, the low word's
+// carry added to the high one: exact in any order, as each add's carry
+// is its own.
+__device__ __forceinline__ void ws_add(int* p, int v) {
+  if (v != 0) atomicAdd(p, v);
+}
+
+__device__ __forceinline__ void ws_add(long long* p, long long v) {
+  if (v != 0) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p),
+              static_cast<unsigned long long>(v));
+  }
+}
+
+__device__ __forceinline__ void ws_add(I128* p, I128 v) {
+  if ((v.lo | static_cast<unsigned long long>(v.hi)) == 0ull) return;
+  const unsigned long long old = atomicAdd(&p->lo, v.lo);
+  atomicAdd(reinterpret_cast<unsigned long long*>(&p->hi),
+            static_cast<unsigned long long>(v.hi) +
+                (old + v.lo < old ? 1ull : 0ull));
+}
+
+template <typename Acc>
+__device__ __forceinline__ Acc ws_load(const Acc* p) {
+  return __ldcg(p);
+}
+
+template <>
+__device__ __forceinline__ I128 ws_load(const I128* p) {
+  return I128{__ldcg(&p->lo), __ldcg(&p->hi)};
+}
+
+// A tile's exact sum rounded once to f32
+__device__ __forceinline__ float to_f32(long long v) {
+  return __ll2float_rn(v);
+}
+
+__device__ __forceinline__ float to_f32(I128 v) { return to_f32_rn(v); }
+
+__device__ __forceinline__ I128& operator+=(I128& a, I128 b) {
+  return a = add128(a, b);
+}
+
 // A block's work item: column tile x, K slice y and z (a bank's expert
 // times its row tiles plus the row tile) of gx column tiles and gy slices.
 struct Item {
@@ -562,7 +756,7 @@ __device__ __forceinline__ void run_item(
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int group = warp % S::kGroups;       // columns 64 group ..
+  const int group = warp % S::kGroups;       // columns 16 kTiles group ..
   const int kwarp = warp / S::kGroups;       // k32 steps kwarp + kKWarps j
   // the epilogue: thread tid owns element e = tid + kThreads j of the
   // [MT][kBN] tile, row e / kBN and column e % kBN (j < kRows): one
@@ -583,11 +777,11 @@ __device__ __forceinline__ void run_item(
     }
   }
 
-  int acc[kPlanes<T>][4][NT][4];
+  int acc[kPlanes<T>][kTiles<T>][NT][4];
 #pragma unroll
   for (int p = 0; p < kPlanes<T>; ++p)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kTiles<T>; ++i)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -597,8 +791,11 @@ __device__ __forceinline__ void run_item(
                                       kPacked ? n0 / 2 : n0, k0, k1, vec,
                                       tid);
   // the lane's fragment offsets (see k32_step): the byte of column
-  // c0 + 8g in row 4t, swizzled, and activation row g at k 4t
-  const int cb = (64 * group + 8 * g) * sizeof(T) / (kPacked ? 2 : 1);
+  // c0 + 8g (int32: c0 + 4g) in row 4t, swizzled, and activation row g
+  // at k 4t
+  constexpr int kWarpCols = 16 * kTiles<T>;
+  const int cb = (kWarpCols * group + kWarpCols / 8 * g) * sizeof(T) /
+                 (kPacked ? 2 : 1);
   const int wl = 4 * t * kRowBytes + ((((cb >> 4) ^ (2 * t))) << 4) +
                  (cb & 15);
   const int al = g * S::kAStride + 4 * t * sizeof(T);
@@ -621,8 +818,12 @@ __device__ __forceinline__ void run_item(
     const unsigned char* st = smem + (s % kStages) * S::kStageBytes;
 #pragma unroll
     for (int j = 0; j < S::kSteps; ++j) {
-      k32_step<T, MT, kPacked>(st, 32 * (kwarp + S::kKWarps * j), wl, al,
-                               acc);
+      const int r0 = 32 * (kwarp + S::kKWarps * j);
+      if constexpr (sizeof(T) == 4) {
+        k32_step_x32<MT>(st, r0, wl, al, acc);
+      } else {
+        k32_step<T, MT, kPacked>(st, r0, wl, al, acc);
+      }
     }
   }
   cp_async_wait<0>();
@@ -630,19 +831,25 @@ __device__ __forceinline__ void run_item(
 
   // the warps' partial tiles [kwarp][MT][kBN] (rows kRedStride apart):
   // accumulator e of MMA tile i, column tile nt is output column
-  // 64 group + 8g + 2i + (e >> 1), row nt * 8 + 2t + (e & 1); packed
-  // weights' sums are 16 times the exact sum (see unpack_rows), a
-  // multiple of 16 below 2^31 in magnitude (16 * 8 * 128 * 32768 = 2^29),
-  // so an arithmetic shift takes the factor back off exactly
+  // kWarpCols group + kWarpCols / 8 g + 2i + (e >> 1), row
+  // nt * 8 + 2t + (e & 1); packed weights' sums are 16 times the exact
+  // sum (see unpack_rows), a multiple of 16 below 2^31 in magnitude
+  // (16 * 8 * 128 * 32768 = 2^29), so an arithmetic shift takes the
+  // factor back off exactly
   Acc* red = reinterpret_cast<Acc*>(smem);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kTiles<T>; ++i) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         Acc v;
-        if constexpr (sizeof(T) == 2) {
+        if constexpr (sizeof(T) == 4) {
+          int grp[kPlanes<T>];
+#pragma unroll
+          for (int p = 0; p < kPlanes<T>; ++p) grp[p] = acc[p][i][nt][e];
+          v = x32_sum(grp);
+        } else if constexpr (sizeof(T) == 2) {
           v = (static_cast<long long>(acc[0][i][nt][e]) << 16) +
               (static_cast<long long>(acc[1][i][nt][e]) << 8) +
               static_cast<long long>(acc[2][i][nt][e]);
@@ -650,8 +857,8 @@ __device__ __forceinline__ void run_item(
           v = kPacked ? acc[0][i][nt][e] >> 4 : acc[0][i][nt][e];
         }
         const int m = nt * 8 + 2 * t + (e & 1);
-        red[(kwarp * MT + m) * S::kRedStride + 64 * group + 8 * g + 2 * i +
-            (e >> 1)] = v;
+        red[(kwarp * MT + m) * S::kRedStride + kWarpCols * group +
+            kWarpCols / 8 * g + 2 * i + (e >> 1)] = v;
       }
     }
   }
@@ -661,7 +868,7 @@ __device__ __forceinline__ void run_item(
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     const int e = tid + kThreads * j;
-    total[j] = 0;
+    total[j] = Acc{};
 #pragma unroll
     for (int w = 0; w < S::kKWarps; ++w) {
       total[j] += red[(w * MT + e / kBN) * S::kRedStride + e % kBN];
@@ -680,7 +887,7 @@ __device__ __forceinline__ void run_item(
       const long long o = offset(j);
       if (o >= 0) out[o] = static_cast<int>(static_cast<unsigned>(v));
     } else {
-      fin[tid + kThreads * j] = __fmul_rn(__ll2float_rn(v), sc);
+      fin[tid + kThreads * j] = __fmul_rn(to_f32(v), sc);
     }
   };
   // the AF pass of the fused modes: one loop over the tile's rows below M,
@@ -711,14 +918,7 @@ __device__ __forceinline__ void run_item(
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     const long long o = offset(j);
-    if (o >= 0 && total[j] != 0) {
-      if constexpr (sizeof(T) == 2) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(ws + o),
-                  static_cast<unsigned long long>(total[j]));
-      } else {
-        atomicAdd(ws + o, total[j]);
-      }
-    }
+    if (o >= 0) ws_add(ws + o, total[j]);
   }
   // the block's adds, ordered by the barrier, are released to the GPU by
   // one thread's fence before its semaphore add (and acquired by the last
@@ -737,7 +937,7 @@ __device__ __forceinline__ void run_item(
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     const long long o = offset(j);
-    total[j] = o >= 0 ? __ldcg(ws + o) : Acc(0);
+    total[j] = o >= 0 ? ws_load(ws + o) : Acc{};
   }
 #pragma unroll
   for (int j = 0; j < kRows; ++j) store(j, total[j]);
@@ -832,6 +1032,9 @@ int dispatch(const T* a, const T* b, const float* scale, void* out,
              const CordicParams* cp, void* stream) {
   static_assert(!(kRaw && kBank), "banks have the fused epilogue");
   constexpr int kMaxMT = sizeof(T) == 1 ? 32 : 16;
+  static_assert(sizeof(T) != 4 || kMaxKSplitWide / Shape<T, 8>::kKWarps <=
+                                      kMaxAccRowsX32,
+                "a warp's x32 plane groups must stay exact");
   if (E <= 0 || (!kBank && E != 1) || M <= 0 || N <= 0 || K <= 0 ||
       kps <= 0 || kps % kBK != 0 || kps > kMaxKSplitWide ||
       (K + kps - 1) / kps > 65535 ||
@@ -858,228 +1061,6 @@ int dispatch(const T* a, const T* b, const float* scale, void* out,
 }
 
 }  // namespace tc
-
-// ---------------------------------------------------------------------------
-// FxP24/32 codes in int32 on the CUDA cores (see the header)
-// ---------------------------------------------------------------------------
-namespace x32 {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = 4;            // a lane's columns: one 16-byte load
-constexpr int kBN = 32 * kCols;     // a block's columns
-constexpr int kMT = 4;              // activation rows of a row tile
-constexpr int kGroup = 8;           // weight rows a lane loads at once
-constexpr int kMaxKSplit = 32768;   // k rows of a block: the int64 sums of
-                                    // l * w stay exact (< 2^16 rows)
-
-// A signed 128-bit integer, hi * 2^64 + lo.
-struct I128 {
-  long long hi;
-  unsigned long long lo;
-};
-
-__device__ __forceinline__ I128 add128(I128 a, I128 b) {
-  I128 r;
-  r.lo = a.lo + b.lo;
-  r.hi = a.hi + b.hi + (r.lo < a.lo ? 1 : 0);
-  return r;
-}
-
-// h * 2^16 + l
-__device__ __forceinline__ I128 join(long long h, long long l) {
-  return add128(I128{h >> 48, static_cast<unsigned long long>(h) << 16},
-                I128{l >> 63, static_cast<unsigned long long>(l)});
-}
-
-// v rounded once to f32, to nearest even: |v| keeps its top 64 bits with
-// every bit shifted out ORed into bit 0 (round to odd, 40 bits below
-// f32's 24), which one conversion then rounds correctly; the power-of-two
-// scale back is exact.
-__device__ __forceinline__ float to_f32_rn(I128 v) {
-  unsigned long long hi = static_cast<unsigned long long>(v.hi);
-  unsigned long long lo = v.lo;
-  const bool neg = v.hi < 0;
-  if (neg) {
-    lo = ~lo + 1ull;
-    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
-  }
-  float f;
-  if (hi == 0ull) {
-    f = __ull2float_rn(lo);
-  } else {
-    const int s = 64 - __clzll(static_cast<long long>(hi));   // 1..64
-    const unsigned long long m =
-        s == 64 ? (hi | (lo != 0ull ? 1ull : 0ull))
-                : (hi << (64 - s)) | (lo >> s) |
-                      ((lo << (64 - s)) != 0ull ? 1ull : 0ull);
-    f = __fmul_rn(__ull2float_rn(m), __int_as_float((127 + s) << 23));
-  }
-  return neg ? -f : f;
-}
-
-__device__ __forceinline__ void mad_wide(long long& acc, int a, int b) {
-  asm("mad.wide.s32 %0, %1, %2, %0;\n" : "+l"(acc) : "r"(a), "r"(b));
-}
-
-// Columns c0..c0+3 of weight row k (zero past k1 or N); `vec`: 16-byte
-// loads (rows 16-byte aligned, N a multiple of 4).
-__device__ __forceinline__ void load_row(const int* __restrict__ B, int k,
-                                         int k1, int N, int c0, int vec,
-                                         int (&b)[kCols]) {
-  const int* row = B + static_cast<size_t>(k) * N + c0;
-  if (vec) {
-    int4 v = make_int4(0, 0, 0, 0);
-    if (k < k1 && c0 < N) v = __ldg(reinterpret_cast<const int4*>(row));
-    b[0] = v.x;
-    b[1] = v.y;
-    b[2] = v.z;
-    b[3] = v.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      b[c] = (k < k1 && c0 + c < N) ? __ldg(row + c) : 0;
-    }
-  }
-}
-
-// Block (column tile x, K slice y, row tile z) of A int32 [M, K] @
-// B int32 [K, N]: out f32 [M, N] = AF(f32(sum) * scale[N]). Split K
-// (gridDim.y > 1): ws holds the slices' partials [gridDim.y][M][N] as
-// (lo, hi) words, counters one semaphore per (z, x), zeroed.
-__global__ void __launch_bounds__(kThreads, 3)
-fxp_gemm_x32_kernel(const int* __restrict__ A, const int* __restrict__ B,
-                    const float* __restrict__ scale, float* __restrict__ out,
-                    unsigned long long* __restrict__ ws,
-                    unsigned* __restrict__ counters, int M, int K, int N,
-                    int kps, int vec, int af, int lv_n, CordicParams cp) {
-  __shared__ long long red[kWarps][kMT][kBN][2];
-  __shared__ float fin[kMT][kBN];
-  __shared__ int is_last;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.z * kMT;
-  const int k0 = blockIdx.y * kps;
-  const int k1 = min(K, k0 + kps);
-  const int c0 = n0 + kCols * lane;
-
-  long long acc[2][kMT][kCols];          // [0]: h * w, [1]: l * w
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int r = 0; r < kMT; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[p][r][c] = 0;
-
-  for (int kc = k0 + 32 * warp; kc < k1; kc += 32 * kWarps) {
-    // lane j: the halves of A[m0 + r][kc + j]
-    int ah[kMT], al[kMT];
-#pragma unroll
-    for (int r = 0; r < kMT; ++r) {
-      const int k = kc + lane;
-      const int a = (m0 + r < M && k < k1)
-          ? __ldg(A + static_cast<size_t>(m0 + r) * K + k) : 0;
-      ah[r] = a >> 16;
-      al[r] = a & 0xFFFF;
-    }
-#pragma unroll
-    for (int g = 0; g < 32; g += kGroup) {
-      int b[kGroup][kCols];
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        load_row(B, kc + g + i, k1, N, c0, vec, b[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-#pragma unroll
-        for (int r = 0; r < kMT; ++r) {
-          const int h = __shfl_sync(0xffffffffu, ah[r], g + i);
-          const int l = __shfl_sync(0xffffffffu, al[r], g + i);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            mad_wide(acc[0][r][c], h, b[i][c]);
-            mad_wide(acc[1][r][c], l, b[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-  // the warps' sums, then thread tid owns column n0 + tid of the tile
-#pragma unroll
-  for (int r = 0; r < kMT; ++r)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      red[warp][r][kCols * lane + c][0] = acc[0][r][c];
-      red[warp][r][kCols * lane + c][1] = acc[1][r][c];
-    }
-  __syncthreads();
-  const int cn = n0 + tid;
-  const int rows = min(kMT, M - m0);
-  I128 v[kMT];
-#pragma unroll
-  for (int r = 0; r < kMT; ++r) {
-    long long h = 0, l = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      h += red[w][r][tid][0];
-      l += red[w][r][tid][1];
-    }
-    v[r] = join(h, l);
-  }
-  if (gridDim.y > 1) {
-    // this slice's partials into its own slot, then the last block of the
-    // tile (the fences as in the tensor-core core) adds every slot
-    auto slot = [&](int y, int r) {
-      return ws + 2 * ((static_cast<size_t>(y) * M + m0 + r) * N + cn);
-    };
-#pragma unroll
-    for (int r = 0; r < kMT; ++r) {
-      if (r < rows && cn < N) {
-        unsigned long long* p = slot(blockIdx.y, r);
-        p[0] = v[r].lo;
-        p[1] = static_cast<unsigned long long>(v[r].hi);
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-      const unsigned prev =
-          atomicAdd(&counters[blockIdx.z * gridDim.x + blockIdx.x], 1u);
-      is_last = prev + 1 == gridDim.y;
-      if (is_last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (!is_last) return;
-#pragma unroll
-    for (int r = 0; r < kMT; ++r) {
-      v[r] = I128{0, 0ull};
-      if (r < rows && cn < N) {
-        for (int y = 0; y < static_cast<int>(gridDim.y); ++y) {
-          const unsigned long long* p = slot(y, r);
-          v[r] = add128(v[r], I128{static_cast<long long>(__ldcg(p + 1)),
-                                   __ldcg(p)});
-        }
-      }
-    }
-  }
-  const float sc = cn < N ? __ldg(scale + cn) : 0.f;
-#pragma unroll
-  for (int r = 0; r < kMT; ++r) fin[r][tid] = __fmul_rn(to_f32_rn(v[r]), sc);
-  // the AF in one rolled loop over the tile's rows (the CORDIC code
-  // inlined once), each row's stores coalesced
-#pragma unroll 1
-  for (int r = 0; r < rows; ++r) {
-    if (cn < N) {
-      out[static_cast<size_t>(m0 + r) * N + cn] =
-          apply_af(fin[r][tid], af, cp, lv_n);
-    }
-  }
-}
-
-}  // namespace x32
 
 // Raw products of int32 codes: a 32 x 32 output tile per block, A and B
 // staged in shared memory 32 k rows at a time, each thread four rows of
@@ -1206,26 +1187,21 @@ extern "C" int fxp_gemm_fused_wide(const int16_t* a, const int16_t* b,
                                       N, N, kps, vec, af, lv_n, cp, stream);
 }
 
-// FxP24/32 codes in int32 on the CUDA cores: a [M, K], b [K, N]; kps at
-// most 32768; when K is split (kps < K) ws holds [K / kps][M][N] pairs of
-// 64-bit words and counters one zeroed word per (row tile of 4, column
-// tile of 128); `vec`: b's rows are 16-byte aligned and N a multiple of 4.
+// FxP24/32 codes in int32 on the tensor-core core (byte planes): a
+// [M, K], b [K, N]; kps a multiple of 128, at most 32768; when K is split
+// (kps < K) ws holds [M, N] 128-bit sums as (lo, hi) pairs of 64-bit
+// words and one counter per tile, all zeroed; `vec` bit 0 / 1: b's / a's
+// rows are 16-byte aligned.
 extern "C" int fxp_gemm_fused_x32(const int32_t* a, const int32_t* b,
                                   const float* scale, float* out,
                                   unsigned long long* ws, unsigned* counters,
                                   int M, int K, int N, int kps, int vec,
                                   int af, int lv_n, const CordicParams* cp,
                                   void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || kps <= 0 || kps > x32::kMaxKSplit ||
-      (K + kps - 1) / kps > 65535 || (M + x32::kMT - 1) / x32::kMT > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 grid((N + x32::kBN - 1) / x32::kBN, (K + kps - 1) / kps,
-            (M + x32::kMT - 1) / x32::kMT);
-  x32::fxp_gemm_x32_kernel<<<grid, x32::kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      a, b, scale, out, ws, counters, M, K, N, kps, vec, af, lv_n, *cp);
-  return static_cast<int>(cudaGetLastError());
+  return tc::dispatch<int32_t, false>(a, b, scale, out,
+                                      reinterpret_cast<I128*>(ws), counters,
+                                      1, M, K, N, N, kps, vec, af, lv_n, cp,
+                                      stream);
 }
 
 // Raw int32 products on the tensor-core core, no epilogue: int8 codes

@@ -31,10 +31,15 @@ Modes, each its own kernel instantiation (`launches_by_mode` counts them):
                 f32 (to nearest even) in integer arithmetic, never through
                 f64, which would round twice. The plain version sums
                 16-bit halves of the codes (`limb_matmul`, rounded by
-                `limbs_to_f32`); the kernel runs on the CUDA cores;
+                `limbs_to_f32`); the kernel splits each code into four
+                byte planes, a signed top byte and three unsigned ones,
+                whose 16 int8 tensor-core products go to seven int32
+                accumulators by their weight 2^(8s) and combine in 128
+                bits (`x32_plane_matmul` is that arithmetic in plain
+                PyTorch);
   * batched and batched_packed — the expert banks, int8 or packed.
-Every mode but x32, and the raw int8, int16 and packed code GEMMs, runs
-on one tensor-core core (`fxp_gemm_tc_kernel`): `mma.sync` tiles fed by
+Every mode, and the raw int8, int16 and packed code GEMMs, runs on one
+tensor-core core (`fxp_gemm_tc_kernel`): `mma.sync` tiles fed by
 asynchronous copies, the nibbles of packed weights turned into int8
 fragments in registers as 16 times their codes, the factor shifted off
 the exact int32 sum. The grid splits K across blocks to fill the card
@@ -52,7 +57,8 @@ step of the reference's.
 
 `fxp_gemm_codes` and `fxp4_gemm_packed` are the raw code GEMMs: the exact
 int32 product with no epilogue, on int8 or wider codes (the caller owns the
-bound K * qmax^2 < 2^31 past 8 bits), or on packed FxP4 weights.
+bound K * qmax^2 < 2^31 past 8 bits), or on packed FxP4 weights; on int32
+codes a plain tiled int32 multiply-add on the CUDA cores.
 
 Replaces src/repro/kernels/fxp_gemm/fxp_gemm.py::fxp_gemm_fused_pallas
 (every mode), ::fxp_gemm_pallas and ::fxp4_gemm_packed_pallas.
@@ -71,24 +77,28 @@ __all__ = ["FUSED_AFS", "fxp_gemm_fused", "fxp_gemm_fused_plain",
            "fxp_gemm_fused_batched", "fxp_gemm_fused_batched_plain",
            "fxp_gemm_codes", "fxp_gemm_codes_plain", "fxp4_gemm_packed",
            "fxp4_gemm_packed_plain", "unpack_nibbles", "int_matmul",
-           "exact_matmul", "byte_plane_matmul", "limb_matmul", "limbs_to_f32",
-           "k_split", "x32_split", "GEMM_MODES", "reset_launches"]
+           "exact_matmul", "byte_plane_matmul", "x32_plane_matmul",
+           "limb_matmul", "limbs_to_f32", "k_split", "GEMM_MODES",
+           "reset_launches"]
 
 #: AFs the fused epilogue supports (the Flex-PE Sel_AF set minus softmax).
 FUSED_AFS = KERNEL_AFS
 
 _SMS = 132            # H100 SXM streaming multiprocessors
 _TC_ROW_BYTES = 128   # tc::kRowBytes in csrc/fxp_gemm.cu (the tensor-core
-                      # core): a block's columns, 128 int8, 64 int16 or 256
-                      # packed FxP4 codes
+                      # core): a block's columns, 128 int8, 64 int16, 32
+                      # int32 or 256 packed FxP4 codes
 _TC_BLOCK_K = 128     # tc::kBK: k rows per stage
 _MAX_KPS_WIDE = 32768  # tc::kMaxKSplitWide: 2 * 128 * 255 * 32768 < 2^31
+_MAX_ACC_ROWS_X32 = 8192  # tc::kMaxAccRowsX32: rows one int32 accumulator
+                          # of the x32 mode sums at most (a warp's quarter
+                          # of a block's slice); 8192 * 195330 < 2^31
 _PLAIN_COLS = 16384   # column chunk of the plain product (bounds its f64)
 _PLANE_K = 1 << 20    # K rows of a plain f64 product of 16-bit halves
-_X32_COLS = 128       # x32::kBN in csrc/fxp_gemm.cu: a block's columns
-_X32_ROWS = 4         # x32::kMT: activation rows of a row tile
-_X32_STEP = 128       # x32::kWarps * 32: k rows the block's warps take at once
-_MAX_KPS_X32 = 32768  # x32::kMaxKSplit: a block's int64 half sums stay exact
+# bytes of a code, by dtype (else int8); a split-K workspace entry holds
+# the exact sum in as many int32 words: int32 sums, int64 for int16
+# codes, 128 bits for int32 codes
+_CODE_BYTES = {torch.int16: 2, torch.int32: 4}
 
 #: the fused GEMM's kernel modes, counted per launch
 GEMM_MODES = ("int8", "packed", "wide", "x32", "batched", "batched_packed")
@@ -135,6 +145,42 @@ def byte_plane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
         total += ((acc32(a @ c) << 16) + (acc32(a @ d + b @ c) << 8)
                   + acc32(b @ d))
     return total
+
+
+def x32_plane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                     rows: int = _MAX_ACC_ROWS_X32
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The x32 mode's arithmetic on int32 codes, in plain PyTorch -> two
+    int64 limbs (hi, lo) [M, N] of the exact sum hi * 2^32 + lo with
+    0 <= lo < 2^32, as `limb_matmul` gives them. Each code c splits into
+    four byte planes, c = c3 2^24 + c2 2^16 + c1 2^8 + c0, a signed top
+    byte c3 = c >> 24 and unsigned c2, c1, c0; the 16 plane products are
+    summed into seven int32 accumulators by their weight 2^(8s), s = i + j,
+    each over a K slice of `rows` rows (the kernel's cap, the most rows
+    any of its accumulators sums) and wrapped to int32 as the kernel's
+    would be; the groups then combine exactly, as the kernel's 128-bit
+    sums do. For the tests, on CPU tensors (CUDA has no int64 product): no
+    path calls it."""
+    x = x_codes.to(torch.int64)
+    w = w_codes.to(torch.int64)
+    xp = [(x >> 8 * i) & 255 for i in range(3)] + [x >> 24]
+    wp = [(w >> 8 * i) & 255 for i in range(3)] + [w >> 24]
+
+    def acc32(v):                    # an int32 accumulator's sum
+        return v.to(torch.int32).to(torch.int64)
+    lo = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64)
+    hi = torch.zeros_like(lo)        # the weight-2^32 groups
+    for k0 in range(0, x.shape[1], rows):
+        ks = slice(k0, k0 + rows)
+        groups = [0] * 7
+        for i in range(4):
+            for j in range(4):
+                groups[i + j] = groups[i + j] + xp[i][:, ks] @ wp[j][ks]
+        g = [acc32(v) for v in groups]
+        lo += g[0] + (g[1] << 8) + (g[2] << 16) + (g[3] << 24)
+        hi += g[4] + (g[5] << 8) + (g[6] << 16) + (lo >> 32)
+        lo &= 0xFFFFFFFF
+    return hi, lo
 
 
 def limb_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor
@@ -232,12 +278,13 @@ def fxp_gemm_fused_batched_plain(x_codes: torch.Tensor,
 
 def _tiles(m: int, packed: bool = False, core=None) -> tuple[int, int]:
     """(columns per block, row tiles) of the tensor-core core's grid, for
-    codes of dtype `core` (int8 when None, or int16) or packed weights: a
-    stage row of 128 bytes of columns (128 int8, 64 int16 or 256 packed
-    FxP4 codes); tiles of 8, 16 or 32 rows (16 at most for int16 codes)."""
-    wide = core == torch.int16
-    rows = 8 if m <= 8 else 16 if m <= 16 or wide else 32
-    cols = (2 if packed else 1) * _TC_ROW_BYTES // (2 if wide else 1)
+    codes of dtype `core` (int8 when None, int16 or int32) or packed
+    weights: a stage row of 128 bytes of columns (128 int8, 64 int16, 32
+    int32 or 256 packed FxP4 codes); tiles of 8, 16 or 32 rows (16 at most
+    for int16 and int32 codes)."""
+    size = _CODE_BYTES.get(core, 1)
+    rows = 8 if m <= 8 else 16 if m <= 16 or size > 1 else 32
+    cols = (2 if packed else 1) * _TC_ROW_BYTES // size
     return cols, -(-m // rows)
 
 
@@ -247,29 +294,41 @@ def k_split(m: int, k: int, n: int, experts: int = 1,
     `_tiles`; `experts` counts a bank's tiles): about one block per SM for
     int8 codes (what measured fastest at the paths' decode shapes:
     tools/gemm_split_sweep.py) and for packed weights' 32-row tiles (whose
-    256 threads hold over half an SM's registers), else as many as fit two
-    to an SM, at least 256 rows each, at most `_MAX_KPS_WIDE`, a multiple
-    of a stage's 128 rows."""
+    256 threads hold over half an SM's registers), else (int16 codes,
+    packed tiles of up to 16 rows) as many as fit two to an SM, at least
+    256 rows each; for int32 codes the fewest slices whose items fill the
+    last wave of two blocks an SM to 90% (`_x32_splits`). At most
+    `_MAX_KPS_WIDE` rows, a multiple of a stage's 128 rows."""
     block_n, m_tiles = _tiles(m, packed, core)
     tiles = -(-n // block_n) * m_tiles * experts
-    int8 = not packed and core != torch.int16
-    resident = _SMS if int8 or (packed and m > 16) else 2 * _SMS
-    splits = max(-(-k // _MAX_KPS_WIDE),
-                 min(max(1, resident // tiles), -(-k // 256)))
+    least = -(-k // _MAX_KPS_WIDE)
+    if core == torch.int32:
+        splits = max(least, _x32_splits(k, tiles))
+    else:
+        int8 = not packed and core in (None, torch.int8)
+        resident = _SMS if int8 or (packed and m > 16) else 2 * _SMS
+        splits = max(least, min(max(1, resident // tiles), -(-k // 256)))
     kps = -(-k // splits)
     return -(-kps // _TC_BLOCK_K) * _TC_BLOCK_K
 
 
-def x32_split(m: int, k: int, n: int) -> int:
-    """K rows per block of the x32 kernel: enough K slices for about two
-    blocks per SM over its (column tile, row tile) grid, at least one
-    step of its warps' 128 rows, at most `_MAX_KPS_X32`, a multiple of
-    128."""
-    tiles = -(-n // _X32_COLS) * -(-m // _X32_ROWS)
-    splits = max(-(-k // _MAX_KPS_X32),
-                 min(max(1, -(-2 * _SMS // tiles)), -(-k // _X32_STEP)))
-    kps = -(-k // splits)
-    return -(-kps // _X32_STEP) * _X32_STEP
+def _x32_splits(k: int, tiles: int) -> int:
+    """K slices of the x32 mode over `tiles` (column tile, row tile)
+    items: two blocks fit an SM, and a grid of items runs in waves of
+    2 * 132. The fewest slices, of at least 640 rows (five stages), whose
+    items fill the last wave to 90%, else the fullest; one H100 run of
+    tools/gemm_split_sweep.py --x32 found these fastest or within 4% of
+    the fastest at Qwen2.5-14B's shapes (4 x 5120 x 13824: 1 slice
+    120.5 us, 3 slices 116.7; 4 x 13824 x 5120: 1 slice 128.9, 3 slices
+    115.4, 5 slices 107.9)."""
+    resident = 2 * _SMS
+
+    def fill(splits):
+        items = tiles * splits
+        return items / (-(-items // resident) * resident)
+    most = max(1, k // 640)
+    return next((s for s in range(1, most + 1) if fill(s) >= 0.9),
+                max(range(1, most + 1), key=fill))
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -295,15 +354,15 @@ _SIGNATURES = {"fxp_gemm_fused": ([_P] * 6 + [_I] * 7 + [_P, _P],
 
 def _workspace(x_codes, e, m, k, n, packed, core=None, handout=False):
     """(kps, workspace, semaphore pointer), zeroed: with split K a
-    workspace [E, M, N] (int32; int64 for int16 codes) and one int32
-    semaphore per (expert, tile); then, with `handout` (int8 banks), the
-    counter from which the kernel hands out its items."""
+    workspace [E, M, N] (int32; int64 for int16 codes, 128 bits for int32
+    codes) and one int32 semaphore per (expert, tile); then, with
+    `handout` (int8 banks), the counter from which the kernel hands out
+    its items."""
     kps = k_split(m, k, n, e, packed, core)
     assert kps <= _MAX_KPS_WIDE, "a block's int32 plane sums would overflow"
     block_n, m_tiles = _tiles(m, packed, core)
     split = kps < k
-    words = 2 if core == torch.int16 else 1   # int32 words per entry
-    acc = words * e * m * n * split
+    acc = _CODE_BYTES.get(core, 1) * e * m * n * split
     sems = -(-n // block_n) * m_tiles * e * split + int(handout)
     ws = torch.zeros(max(1, acc + sems), dtype=torch.int32,
                      device=x_codes.device)
@@ -372,57 +431,30 @@ def _tc_vec(x_codes, w_codes):
 
 
 def _launch_wide(x_codes, w_codes, scale, af, hr_stages, lv_stages):
-    """One launch of the tensor-core core over int16 x [M, K], w [K, N]
-    and scale [N] (CUDA, checked by the caller) -> f32 [M, N]."""
+    """One launch of the tensor-core core over int16 (the wide mode) or
+    int32 codes (the x32 mode) x [M, K], w [K, N] of one dtype and scale
+    [N] (CUDA, checked by the caller) -> f32 [M, N]."""
     m, k = x_codes.shape
     n = scale.numel()
     x_codes = x_codes.contiguous()
     w_codes = w_codes.contiguous()
     scale = scale.reshape(n).to(torch.float32).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
-    kps, ws, sem = _workspace(x_codes, 1, m, k, n, False, torch.int16)
+    core = x_codes.dtype
+    kps, ws, sem = _workspace(x_codes, 1, m, k, n, False, core)
     vec = _tc_vec(x_codes, w_codes)
-    err = library("fxp_gemm", _SIGNATURES).fxp_gemm_fused_wide(
-        x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), sem, m, k, n, kps, vec, AF_CODE[af],
-        lv_stages, ctypes.byref(cordic_params(hr_stages)), _stream(x_codes))
+    lib = library("fxp_gemm", _SIGNATURES)
+    mode = "x32" if core == torch.int32 else "wide"
+    entry = (lib.fxp_gemm_fused_x32 if mode == "x32"
+             else lib.fxp_gemm_fused_wide)
+    err = entry(x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), sem, m, k, n, kps, vec,
+                AF_CODE[af], lv_stages, ctypes.byref(cordic_params(hr_stages)),
+                _stream(x_codes))
     if err != 0:
-        raise RuntimeError(f"fxp_gemm_fused wide launch failed: CUDA error "
-                           f"{err}")
-    _count("wide")
-    return out
-
-
-def _launch_x32(x_codes, w_codes, scale, af, hr_stages, lv_stages):
-    """One launch of the x32 kernel over int32 x [M, K], w [K, N] and
-    scale [N] (CUDA, checked by the caller) -> f32 [M, N]. With K split,
-    the workspace holds each slice's 128-bit partial sums (two int64
-    words an output, written once, not zeroed) and then one zeroed
-    semaphore per (row tile, column tile)."""
-    m, k = x_codes.shape
-    n = scale.numel()
-    x_codes = x_codes.contiguous()
-    w_codes = w_codes.contiguous()
-    scale = scale.reshape(n).to(torch.float32).contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
-    kps = x32_split(m, k, n)
-    splits = -(-k // kps)
-    acc = 2 * splits * m * n if splits > 1 else 0
-    sems = -(-n // _X32_COLS) * -(-m // _X32_ROWS) if splits > 1 else 0
-    ws = torch.empty(acc + -(-sems // 2) + 1, dtype=torch.int64,
-                     device=x_codes.device)
-    if sems:
-        ws[acc:].zero_()
-    vec = int(n % 4 == 0 and w_codes.data_ptr() % 16 == 0)
-    err = library("fxp_gemm", _SIGNATURES).fxp_gemm_fused_x32(
-        x_codes.data_ptr(), w_codes.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), ws[acc:].data_ptr(), m, k, n, kps,
-        vec, AF_CODE[af], lv_stages, ctypes.byref(cordic_params(hr_stages)),
-        _stream(x_codes))
-    if err != 0:
-        raise RuntimeError(f"fxp_gemm_fused x32 launch failed: CUDA error "
-                           f"{err}")
-    _count("x32")
+        raise RuntimeError(f"fxp_gemm_fused {mode} launch failed: CUDA "
+                           f"error {err}")
+    _count(mode)
     return out
 
 
@@ -476,12 +508,10 @@ def fxp_gemm_fused(x_codes: torch.Tensor, w_codes: torch.Tensor,
     if packed and torch.int8 != x_codes.dtype:
         raise ValueError("packed weights hold FxP4 codes; the activation "
                          "codes must be int8")
-    if torch.int32 in (x_codes.dtype, w_codes.dtype):
-        return _launch_x32(x_codes.to(torch.int32), w_codes.to(torch.int32),
-                           scale, af, hr_stages, lv_stages)
-    if x_codes.dtype == torch.int16 or w_codes.dtype == torch.int16:
-        return _launch_wide(x_codes.to(torch.int16), w_codes.to(torch.int16),
-                            scale, af, hr_stages, lv_stages)
+    for wide in (torch.int32, torch.int16):
+        if wide in (x_codes.dtype, w_codes.dtype):
+            return _launch_wide(x_codes.to(wide), w_codes.to(wide), scale,
+                                af, hr_stages, lv_stages)
     return _launch(x_codes[None], w_codes[None], scale, af, hr_stages,
                    lv_stages, experts=False, packed=packed)[0]
 

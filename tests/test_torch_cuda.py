@@ -27,8 +27,9 @@ codes, byte planes on the tensor cores) takes the exact integer sum and
 rounds it once to f32, as its plain version does: bit-equal, with and
 without its AF; its packed expert-bank mode is bit-equal to the
 per-expert loop of the packed plain version. Every fused mode (int8 and
-packed, dense and expert banks) and the raw int8 and packed GEMMs run on
-the tensor-core core, whose profiler record is `fxp_gemm_tc_kernel`; the
+packed, dense and expert banks, int16 and int32 codes) and the raw int8,
+int16 and packed GEMMs run on the tensor-core core, whose profiler record
+is `fxp_gemm_tc_kernel`; the
 bank tests also route no expert, one and every expert, and launch twice
 with other routing (a semaphore left dirty would show)."""
 import ctypes
@@ -319,15 +320,19 @@ def _x32_operands(rng, cuda, m, k, n, ends, q=(1 << 31) - 1):
     (4, 13824, 5120, False), (4, 5120, 152064, False),
     (16, 5120, 5120, False), (13, 1030, 130, False), (3, 96, 1001, False),
     (1, 40000, 300, False), (4, 13824, 5120, True), (16, 13824, 1001, True),
-    (5, 70000, 130, True)])
+    (5, 70000, 130, True), (16, 13824, 5120, True), (4, 32768, 8448, True),
+    (4, 40000, 8448, True)])
 @pytest.mark.parametrize("af", [None, "silu"])
 def test_x32_gemm_kernel_bit_equal_to_plain(cuda, m, k, n, ends, af):
     """FxP32 codes in int32 at Qwen2.5-14B's decode and prefill shapes, and
     ragged M, K and N (N 130 and 1001 take the single-code loads; K 40000
-    and 70000 pass a block's 32768-row cap, whose slices add in 128 bits
-    across blocks): the exact integer sum rounded once to f32 on both
-    sides, bit-equal with and without the fused SiLU; one launch on the
-    x32 mode a call. `ends`: codes at the ends of int32."""
+    and 70000 split K, whose slices add in 128 bits across blocks): the
+    exact integer sum rounded once to f32 on both sides, bit-equal with
+    and without the fused SiLU; one launch on the x32 mode a call.
+    `ends`: codes at the ends of int32. At N 8448 the column tiles fill
+    the card, so K 32768 runs in one slice a block, each warp's int32
+    plane groups summing the 8192 rows of their cap, and K 40000 passes
+    the block's 32768-row cap (two slices)."""
     rng = np.random.default_rng(m * 31 + n + k)
     x, w, scale = _x32_operands(rng, cuda, m, k, n, ends)
     before = (fxp_gemm_fused.launches,
@@ -360,23 +365,26 @@ def test_x32_gemm_kernel_every_af_bit_equal(cuda, af):
 
 
 def test_x32_gemm_runs_its_own_kernel(cuda):
-    """An int32 call's GEMM record is the x32 kernel's, never the
-    tensor-core core's, and a CUDA graph of three calls holds one kernel
-    node (a node type of 0) a call, and one more where K is split."""
+    """An int32 call's GEMM record is the tensor-core core's int32
+    instantiation (`fxp_gemm_tc_kernel<int, ...>`: byte planes on the
+    tensor cores) and no other GEMM kernel's, and a CUDA graph of three
+    calls holds two kernel nodes (a node type of 0) a call, K split or
+    not: the core's workspace fill and the GEMM."""
     rng = np.random.default_rng(4)
     x, w, scale = _x32_operands(rng, cuda, 4, 5120, 1024, False)
     names = _kernel_records(lambda: [fxp_gemm_fused(x, w, scale)
                                      for _ in range(3)])
-    assert any("fxp_gemm_x32_kernel" in k for k in names), names
-    assert not any("fxp_gemm_tc_kernel" in k for k in names), names
-    # K split: each call zeroes its semaphores (a fill kernel) and
-    # launches once; unsplit (a grid that fills the card), no fill
+    gemms = {k for k in names if "fxp_gemm" in k}
+    assert gemms and all("fxp_gemm_tc_kernel<int," in k for k in gemms), \
+        names
+    # K split (8 slices): each call zeroes its workspace (a fill kernel)
+    # and launches once; unsplit (a grid that fills the card), the same
     fxp_gemm_fused(x, w, scale)          # builds and loads before capture
     assert _graph_node_types(lambda: fxp_gemm_fused(x, w, scale),
                              3).count(0) == 6
     x, w, scale = _x32_operands(rng, cuda, 4, 512, 40000, False)
     assert _graph_node_types(lambda: fxp_gemm_fused(x, w, scale),
-                             3).count(0) == 3
+                             3).count(0) == 6
 
 
 def test_fxp32_quantize_saturates_on_the_card(cuda):

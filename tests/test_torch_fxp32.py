@@ -64,8 +64,8 @@ from repro_torch.core.precision import (QuantizedActivation,
 from repro_torch.core.qtensor import quantize_tensor as tquantize_tensor
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.kernels.fxp_gemm.fxp_gemm import (FUSED_AFS, fxp_gemm_fused,
-                                                   limb_matmul, limbs_to_f32,
-                                                   x32_split)
+                                                   k_split, limb_matmul,
+                                                   limbs_to_f32)
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serving import Request, ServingEngine
@@ -166,16 +166,18 @@ def test_limb_matmul_past_2_to_the_64_and_at_f32_ties():
 
 
 def test_x32_split_bounds():
-    """The kernel's K slices: a multiple of its 128-row warp step, at most
-    32768 rows (its int64 half sums stay exact), enough slices to fill
-    the card at the decode shapes."""
+    """The kernel's K slices (the tensor-core core's split of int32 codes):
+    a multiple of a stage's 128 rows, at most 32768 rows (each warp's
+    int32 plane groups then sum at most 8192, which stay exact), enough
+    slices to fill the card at the decode shapes."""
     for m, k, n in [(4, 5120, 5120), (4, 5120, 1024), (4, 5120, 13824),
                     (4, 13824, 5120), (4, 5120, 152064), (16, 5120, 5120),
                     (4, 100000, 64), (1, 96, 8)]:
-        kps = x32_split(m, k, n)
+        kps = k_split(m, k, n, core=torch.int32)
         assert kps % 128 == 0 and 128 <= kps <= 32768
-        tiles = -(-n // 128) * -(-m // 4)
-        assert tiles * -(-k // kps) >= min(132, tiles * -(-k // 128))
+        assert kps // 4 <= 8192
+        tiles = -(-n // 32) * -(-m // 8)
+        assert tiles * -(-k // kps) >= min(132, tiles * -(-k // 256))
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ split-K adds issued, semaphore passed, last item of the tile done), one
 copy that returns right after the k loop, and one that runs int8 banks
 on the grid (one item a block) instead of handing their items out. It
 then prints, for the raw int8 and the raw packed FxP4 GEMM at M 32 x K
-5120 x N 5120, the wide mode at decode shapes, the int8 and packed modes
-at Qwen2.5-14B's w1 (fused SiLU) and DeepSeekMoE-16B's expert banks (64
+5120 x N 5120, the wide mode at decode shapes, the x32, int8 and packed
+modes at Qwen2.5-14B's w1 (fused SiLU) and DeepSeekMoE-16B's expert banks (64
 experts; int8 at decode, 4 tokens routed top-6, for 2048 -> 1408 and
 1408 -> 2048, at a 16-row prefill chunk and with every queue full;
 packed at decode), the percentiles of each phase's end over the items
@@ -43,7 +43,7 @@ _PROBE = ("  if (threadIdx.x == 0) {{ unsigned long long t_; asm volatile("
           "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); reinterpret_cast<"
           "unsigned long long*>(counters + " + str(_GAP) + ")[((it.z * it.gy "
           "+ it.y) * it.gx + it.x) * 8 + {}] = t_; }}\n")
-_ACC = "  int acc[kPlanes<T>][4][NT][4];\n"
+_ACC = "  int acc[kPlanes<T>][kTiles<T>][NT][4];\n"
 _RING = "  __syncthreads();                         // the ring is free\n"
 _SUMMED = "  if (it.gy == 1) {\n"
 _HANDOUT = "constexpr bool kHandOut = kBank && !kPacked;"
@@ -52,7 +52,7 @@ _LAST = "  if (!is_last) return;\n  // every load"
 _END = ("  for (int j = 0; j < kRows; ++j) store(j, total[j]);\n"
         "  finish();\n}\n")
 _LOOP_ONLY = ("  { int s_ = 0;\n    for (int p = 0; p < kPlanes<T>; ++p)\n"
-              "    for (int i = 0; i < 4; ++i)\n"
+              "    for (int i = 0; i < kTiles<T>; ++i)\n"
               "    for (int nt = 0; nt < NT; ++nt)\n"
               "    for (int e = 0; e < 4; ++e) s_ += acc[p][i][nt][e];\n"
               "    if (s_ == 0x7fffffff) static_cast<int*>(out_)[0] = s_;\n"
@@ -108,7 +108,7 @@ def _probe_workspace(x_codes, e, m, k, n, packed, core=None,
     kps = fx.k_split(m, k, n, e, packed, core)
     block_n, m_tiles = fx._tiles(m, packed, core)
     items = -(-n // block_n) * m_tiles * e * -(-k // kps)
-    words = (2 if core == torch.int16 else 1) * e * m * n
+    words = fx._CODE_BYTES.get(core, 1) * e * m * n
     ws = torch.zeros(words + _GAP + 16 * items, dtype=torch.int32,
                      device=x_codes.device)
     _probe_workspace.last = (ws, words, items)
@@ -155,6 +155,11 @@ def cases(dev, gen):
         sw = torch.rand((n,), generator=gen, device=dev) * 1e-9
         yield (f"M 4 K 5120 N {n} int16",
                lambda xw=xw, ww=ww, sw=sw: fx.fxp_gemm_fused(xw, ww, sw))
+    x32, w32 = codes((4, 5120), (1 << 31) - 1, torch.int32), codes(
+        (5120, 13824), (1 << 31) - 1, torch.int32)
+    s32 = torch.rand((13824,), generator=gen, device=dev) * 2.0 ** -70
+    yield ("M 4 K 5120 N 13824 int32 + silu",
+           lambda: fx.fxp_gemm_fused(x32, w32, s32, af="silu"))
     s1 = torch.rand((13824,), generator=gen, device=dev) * 1e-4
     x8, w8 = codes((4, 5120), 127), codes((5120, 13824), 127)
     yield ("M 4 K 5120 N 13824 int8 + silu",
